@@ -21,6 +21,7 @@ import torch
 
 from monocular_slam_tpu_torch.datasets.synthetic import arc_trajectory
 from monocular_slam_tpu_torch.ops.pyramid import cubic_upsample
+from monocular_slam_tpu_torch.utils.device import resolve_device
 
 SYNTH_K = np.array([517.3, 516.5, 318.6, 255.3])
 
@@ -116,9 +117,10 @@ def render_frame(pose: torch.Tensor, k: torch.Tensor, wh, planes: Planes,
 def render_sequence(seed: int = 11, n_frames: int = 60, wh=(640, 480), radius: float = 1.8,
                     ang_step: float = 0.06, tex_size: int = 2048, device=None):
     """The rendered orbit inside the box room. Returns (images (F, H, W)
-    float32 tensor on `device`, quantized to integers in [0, 255] as the
-    reference's PNG export stores them; poses_gt (F, 3, 4) numpy
-    world->camera; k (4,) numpy)."""
+    float32 tensor on `device` (default: the card), quantized to integers
+    in [0, 255] as the reference's PNG export stores them; poses_gt
+    (F, 3, 4) numpy world->camera; k (4,) numpy)."""
+    device = resolve_device(device)
     W, H = wh
     k = SYNTH_K * np.array([W / 640.0, H / 480.0, W / 640.0, H / 480.0])
     planes = box_room(device=device)

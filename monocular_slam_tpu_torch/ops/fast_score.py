@@ -18,23 +18,16 @@ keyed by a hash of the source, and loaded with `ctypes`.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import torch
 
 from monocular_slam_tpu_torch.ops import fast
+from monocular_slam_tpu_torch.utils import cuda_build
 
 LAUNCHES = 0  # kernel launches by `corner_maps` in this process
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "fast_score.cu"
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 _lib = None
-BUILD_INFO: dict = {}  # filled by `build()`: path, seconds, log
+BUILD_INFO: dict = {}  # filled by `load()`: path, seconds, log
 
 
 def corner_maps_plain(img: torch.Tensor, threshold: float = 20.0):
@@ -42,53 +35,14 @@ def corner_maps_plain(img: torch.Tensor, threshold: float = 20.0):
     return fast.nms3(fast.corner_score(img, threshold)), fast.corner_score_raw(img)
 
 
-def _nvcc() -> str:
-    for cand in (
-        os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),
-        shutil.which("nvcc"),
-        "/usr/local/cuda/bin/nvcc",
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def build() -> Path:
-    """Compile the kernel library if its source changed; returns its path."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    out = _BUILD_DIR / f"libfast_score_{tag}.so"
-    if out.exists():
-        BUILD_INFO.setdefault("path", str(out))
-        BUILD_INFO.setdefault("log", "already built")
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(_SRC),
-    ]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    BUILD_INFO.update(path=str(out), seconds=time.perf_counter() - t0,
-                      log=(proc.stdout + proc.stderr).strip())
-    return out
-
-
 def load():
     """The kernel library, built if needed and loaded once per process."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.fast_corner_maps.argtypes = [
+        _lib = cuda_build.load("fast_score", BUILD_INFO, "fast_corner_maps", [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-        ]
-        lib.fast_corner_maps.restype = ctypes.c_int
-        _lib = lib
+        ])
     return _lib
 
 
@@ -113,10 +67,9 @@ def corner_maps(img: torch.Tensor, threshold: float = 20.0):
     nms = torch.empty_like(img)
     raw = torch.empty_like(img)
     with torch.cuda.device(img.device):
-        stream = torch.cuda.current_stream(img.device).cuda_stream
         err = lib.fast_corner_maps(
             img.data_ptr(), nms.data_ptr(), raw.data_ptr(), H, W,
-            float(threshold), stream,
+            float(threshold), cuda_build.stream_of(img),
         )
     if err != 0:
         raise RuntimeError(f"fast_corner_maps launch failed: CUDA error {err}")

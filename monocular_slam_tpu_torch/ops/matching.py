@@ -1,11 +1,14 @@
 """Descriptor matching: Hamming table + top-2 + ratio test + mutual check
-(counterpart of `monocular_slam_tpu/ops/matching.py`, dense route).
+(counterpart of `monocular_slam_tpu/ops/matching.py`).
 
-dist = (256 - a_pm1 . b_pm1) / 2 on the +-1 expansion. CUDA has no int8 or
-int32 `torch.matmul`, so the product runs in float32: |dot| <= 256, every
-partial sum is an integer below 2^24, and with TF32 off it is exact.
-The reference's fused Hamming kernel (K2) serves only map-scale databases
-(M >= 4096) on a TPU; every match on the ported path is frame-to-frame.
+dist = (256 - a_pm1 . b_pm1) / 2 on the +-1 expansion. The dense route
+materializes the (N, M) table: CUDA has no int8 or int32 `torch.matmul`,
+so the product runs in float32 (|dot| <= 256, every partial sum is an
+integer below 2^24, and with TF32 off it is exact). The kernel route is K2
+(`ops/hamming.py`), which keeps only a running top-2 per query row. As in
+the reference, `match(use_kernel=None)` takes K2 for a single database of
+at least PALLAS_MIN_DB rows on the card; the loop-closing callers
+(`LoopCloser.compute_sim3`, `tracker.relocalize`) ask for it explicitly.
 """
 
 from __future__ import annotations
@@ -14,9 +17,12 @@ from typing import NamedTuple
 
 import torch
 
+from monocular_slam_tpu_torch.ops import hamming
+
 FEATURE_MATCH_RATIO_TEST = 0.85
 TRACKING_RATIO = 0.8
-BIG = 1 << 20
+BIG = hamming.BIG
+PALLAS_MIN_DB = 4096  # database rows from which the default route is K2
 
 
 def hamming_matrix(a_pm1: torch.Tensor, b_pm1: torch.Tensor) -> torch.Tensor:
@@ -33,10 +39,17 @@ class Matches(NamedTuple):
 
 
 def match(a_pm1, b_pm1, a_valid, b_valid, ratio: float = FEATURE_MATCH_RATIO_TEST,
-          max_dist: int = 256, cross_check: bool = True) -> Matches:
+          max_dist: int = 256, cross_check: bool = True, use_kernel: bool | None = None) -> Matches:
     """Lowe-ratio kNN matching; invalid rows/cols sit at distance 1<<20.
     `b_pm1` (..., M, 256) and `b_valid` (..., M) may carry leading batch
-    dims: one query set against several databases at once."""
+    dims on the dense route: one query set against several databases at
+    once. `use_kernel=True` routes a single (M, 256) database to K2."""
+    if use_kernel is None:
+        use_kernel = (b_pm1.device.type == "cuda" and b_pm1.dim() == 2
+                      and b_pm1.shape[0] >= PALLAS_MIN_DB)
+    if use_kernel:
+        return hamming.match_kernel(a_pm1, b_pm1, a_valid, b_valid, ratio=ratio,
+                                    max_dist=max_dist, cross_check=cross_check)
     D = hamming_matrix(a_pm1, b_pm1)
     D = torch.where(b_valid[..., None, :], D, BIG)
     D = torch.where(a_valid[:, None], D, BIG)
@@ -60,3 +73,16 @@ def _select_matches(D, a_valid, ratio, max_dist, cross_check) -> Matches:
         rows = torch.arange(D.shape[-2], device=D.device)
         ok = ok & (torch.gather(best_col, -1, best) == rows)
     return Matches(best.to(torch.int32), d1, ok, ok.sum(-1))
+
+
+def guided_match(a_pm1, b_pm1, a_valid, b_valid, nodes_a, nodes_b,
+                 ratio: float = FEATURE_MATCH_RATIO_TEST, max_dist: int = 256,
+                 cross_check: bool = True) -> Matches:
+    """DBoW2 direct-index ("FeatureVector") matching: only pairs quantized
+    to the same vocabulary node (`retrieval.vocabulary.node_words`) are
+    candidates, as a node-equality mask on the dense table."""
+    D = hamming_matrix(a_pm1, b_pm1)
+    D = torch.where(nodes_a[:, None] == nodes_b[None, :], D, BIG)
+    D = torch.where(b_valid[None, :], D, BIG)
+    D = torch.where(a_valid[:, None], D, BIG)
+    return _select_matches(D, a_valid, ratio, max_dist, cross_check)

@@ -1,6 +1,6 @@
 """Local-mapping hygiene: observation bookkeeping, map-point culling,
-projection-guided fuse and keyframe overlap (counterpart of the functions
-of `monocular_slam_tpu/slam/mapping.py` that the session path runs)."""
+projection-guided fuse, keyframe overlap and the covisibility graph
+(counterpart of `monocular_slam_tpu/slam/mapping.py`)."""
 
 from __future__ import annotations
 
@@ -115,3 +115,44 @@ def frame_overlap(state: SlamState, i: int, j) -> torch.Tensor:
     seen_j = mark(state.points.shape[0], fp_j, keep=ok_j)
     shared = (ok_i & seen_j[torch.clamp(fp_i, min=0).long()]).to(torch.int32).sum()
     return shared / torch.clamp(ok_i.to(torch.int32).sum(), min=1)
+
+
+def _incidence_from(rows: torch.Tensor, pts: torch.Tensor, valid: torch.Tensor, F: int, P: int):
+    """(F, P) float32 0/1 incidence: max of `valid` over (row, point) pairs;
+    rows outside [0, F) are dropped."""
+    ok = (rows >= 0) & (rows < F)
+    flat = torch.where(ok, rows.long() * P + pts.long(), F * P)
+    inc = torch.zeros(F * P + 1, dtype=torch.float32, device=pts.device)
+    inc = inc.scatter_reduce(0, flat, valid.to(torch.float32), "amax")
+    return inc[: F * P].reshape(F, P)
+
+
+def covisibility(state: SlamState) -> torch.Tensor:
+    """(F, F) int32 shared-map-point counts between frames (rows of evicted
+    frames are zero), as one incidence product (exact: 0/1 float32 inputs)."""
+    F, P = state.poses.shape[0], state.points.shape[0]
+    cam_idx, pt_idx, _, _, valid = state_mod.observation_edges(state)
+    inc = _incidence_from(cam_idx, pt_idx, valid, F, P)
+    return (inc @ inc.T).to(torch.int32)
+
+
+def _incidence(state: SlamState) -> torch.Tensor:
+    """(F, P) 0/1 incidence of slot-resident observations of valid points."""
+    N = state.feat_point.shape[1]
+    F, P = state.poses.shape[0], state.points.shape[0]
+    fp = state.feat_point
+    resident = state.frame_of >= 0
+    valid = (fp >= 0) & state.kp_valid & resident[:, None] & state.point_valid[torch.clamp(fp, min=0).long()]
+    rows = torch.where(resident, state.frame_of, F).repeat_interleave(N)
+    return _incidence_from(rows, torch.clamp(fp.reshape(-1), min=0), valid.reshape(-1), F, P)
+
+
+def covisibility_row(state: SlamState, i) -> torch.Tensor:
+    """(F,) int32 shared-map-point counts between frame i and every frame."""
+    inc = _incidence(state)
+    return (inc @ inc[i]).to(torch.int32)
+
+
+def covisibility_window(state: SlamState, i, min_shared: int = 15) -> torch.Tensor:
+    """(F,) bool: frames sharing >= min_shared points with frame i."""
+    return (covisibility(state)[i] >= min_shared) & state.pose_valid

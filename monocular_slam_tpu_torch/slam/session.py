@@ -1,11 +1,13 @@
 """SlamSession — the host loop over the SLAM stages (counterpart of the
-image and feature paths of `monocular_slam_tpu/slam/session.py`).
+image and feature paths and the loop-closer half of
+`monocular_slam_tpu/slam/session.py`).
 
 Frame 0 is the reference; later frames bootstrap against it until the
 two-view map is accepted; every frame after that runs one step: ORB
 extraction (the K1 kernel on a card) -> undistortion -> state ingest ->
 `tracker.track` -> the keyframe rule -> at keyframe rate plus the cadence
-floor and warmup, the mapping block fuse -> windowed local BA -> cull.
+floor and warmup, the mapping block fuse -> windowed local BA -> cull ->
+with a loop closer attached, `loop_closer.detect_step`.
 
 The reference compiles the step into one program with `lax.cond` around the
 mapping block. Here the step runs eagerly and pulls ONE packed vector per
@@ -14,8 +16,12 @@ counts), then decides the mapping block with a Python `if`. Inside, the LM
 loops are branch-free. Linear-algebra calls that check their status on the
 host (`eigh`, `svd`) add syncs of their own; `chip_smoke.py` counts them.
 
-Not ported yet: the loop closer, relocalization (active only with a
-closer), keyframe culling, `prewarm` and `add_frame_from_buffer`.
+With a loop closer, per-frame outcomes are acted on `stat_lag` frames late,
+as in the reference: the consistency check and closures, relocalization
+after `reloc_after` failures, and FrameCulling every `kf_cull_every`
+keyframes (dispatched on the state of its frame, applied `stat_lag` frames
+later). So closures, relocalizations and culls fire on the same frames as
+in the reference. Not ported: `prewarm` and `add_frame_from_buffer`.
 """
 
 from __future__ import annotations
@@ -28,7 +34,9 @@ import torch
 from monocular_slam_tpu_torch.geometry import camera as cam
 from monocular_slam_tpu_torch.ops import features as features_mod
 from monocular_slam_tpu_torch.ops import orb
+from monocular_slam_tpu_torch.slam import keyframes as kf_mod
 from monocular_slam_tpu_torch.slam import local_ba, mapping, tracker
+from monocular_slam_tpu_torch.slam import loop_closer as lc_mod
 from monocular_slam_tpu_torch.slam import state as state_mod
 from monocular_slam_tpu_torch.slam.config import SlamConfig
 from monocular_slam_tpu_torch.slam.state import SlamState
@@ -37,9 +45,12 @@ from monocular_slam_tpu_torch.utils.device import resolve_device
 
 class FrameStats:
     """Per-frame outcomes. Host fields are plain values; the mapping
-    block's chi2 and fuse/cull counts stay device scalars until read."""
+    block's chi2 and fuse/cull counts stay device scalars until read, and
+    the four detection outputs (`cand_j`, `cand_score`, `cand_floor`,
+    `cand_n`) one packed device vector, pulled once on first read."""
 
     _DEVICE = ("chi2_before", "chi2_after", "n_fused", "n_culled")
+    _DETECT = ("cand_j", "cand_score", "cand_floor", "cand_n")
 
     def __init__(self, frame: int, **kw):
         self.frame = frame
@@ -48,50 +59,77 @@ class FrameStats:
         self.n_new_points = 0
         self.is_keyframe = False
         self.last_kf = -1
+        self.loop_closed = False
         self._dev = {"chi2_before": math.nan, "chi2_after": math.nan,
                      "n_fused": 0, "n_culled": 0}
+        self._det = None
+        self._det_vals = {"cand_j": -1, "cand_score": 0.0, "cand_floor": 0.0, "cand_n": 0}
         for n, v in kw.items():
             setattr(self, n, v)
 
+    def _set_detect(self, det: lc_mod.DetectOut) -> None:
+        self._det = torch.stack([x.to(torch.float64) for x in det])
+
+    def _resolve(self) -> None:
+        if self._det is not None:
+            j, score, floor, n = self._det.tolist()
+            self._det_vals.update(cand_j=int(j), cand_score=score, cand_floor=floor, cand_n=int(n))
+            self._det = None
+
     def __getattr__(self, name):
-        dev = self.__dict__.get("_dev")
+        d = self.__dict__
+        dev = d.get("_dev")
         if dev is not None and name in dev:
             v = dev[name]
             if torch.is_tensor(v):
                 v = v.item()
                 dev[name] = v
             return v
+        if name in FrameStats._DETECT and "_det_vals" in d:
+            self._resolve()
+            return d["_det_vals"][name]
         raise AttributeError(name)
 
     def __setattr__(self, name, value):
         if name in FrameStats._DEVICE:
             self._dev[name] = value
+        elif name in FrameStats._DETECT:
+            self._resolve()
+            self._det_vals[name] = value
         else:
             object.__setattr__(self, name, value)
 
     def __repr__(self):
-        host = {n: v for n, v in self.__dict__.items() if n != "_dev"}
-        host.update({n: getattr(self, n) for n in FrameStats._DEVICE})
+        host = {n: v for n, v in self.__dict__.items() if not n.startswith("_")}
+        host.update({n: getattr(self, n) for n in FrameStats._DEVICE + FrameStats._DETECT})
         return f"FrameStats({host})"
 
 
 class SlamSession:
     """Feed frames (images or precomputed features), get trajectory + map.
 
-        sess = SlamSession(cfg, seed=1, device="cuda")
+        sess = SlamSession(cfg, seed=1)            # on the card
         for img, ts in frames:
             sess.add_frame(img, k=K, timestamp=ts)
         poses, valid, stamps = sess.trajectory()
+
+    With loop closing: `SlamSession(cfg, loop_closer=LoopCloser(
+    vocabulary.load_default(), cfg))`. `device` defaults to the card and
+    raises without one; pass `device="cpu"` to run on the CPU.
     """
 
     def __init__(self, cfg: SlamConfig = SlamConfig(), seed: int = 0,
-                 run_ba: bool = True, device=None):
+                 run_ba: bool = True, loop_closer: lc_mod.LoopCloser | None = None,
+                 device=None):
         if not cfg.ba.keyframe_only:
             raise NotImplementedError(
                 "BAConfig.keyframe_only=False (per-frame BA cadence) is not ported")
         self.cfg = cfg
         self.run_ba = run_ba
         self.device = resolve_device(device)
+        if loop_closer is not None and loop_closer.device != self.device:
+            raise ValueError(f"loop closer on {loop_closer.device}, session on {self.device}")
+        self.loop_closer = loop_closer
         self.state: SlamState = state_mod.empty_state(cfg, self.device)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)
@@ -101,7 +139,14 @@ class SlamSession:
         self._initialized = False
         self._init_ref = 0
         self._last_kf = -1
-        self._keyframes: list[int] = []
+        self._keyframes: list[int] = []  # folded from stats (lagging with a closer)
+        self._kf_scanned = 0
+        self._kf_culled: set[int] = set()
+        self._kf_since_cull = 0
+        self._cull_pending = None  # (device flags, keyframes, dispatch frame)
+        self._fail_streak = 0
+        self.reloc_attempts = 0  # relocalize calls (candidates tried)
+        self.reloc_successes = 0
 
         self._auto_steer = cfg.frontend.steer_mode == "auto"
         self._steer = "binned" if self._auto_steer else cfg.frontend.steer_mode
@@ -152,7 +197,9 @@ class SlamSession:
             self._slot_frame[slot] = i
             return slot, -1
         protect_after = i - self._protect_window
-        kfs = set(self.keyframes)
+        # with a closer the flags lag by `stat_lag` frames; lagging keyframes
+        # are inside the protected window anyway
+        kfs = set(self._keyframes_known() if self.loop_closer is not None else self.keyframes)
         resident = sorted((f, s) for s, f in enumerate(self._slot_frame) if f >= 0)
         victim = None
         for f, s in resident:
@@ -241,18 +288,15 @@ class SlamSession:
                 self._initialized = True
                 st.is_keyframe = True
                 self._last_kf = i
+                if self.loop_closer is not None:
+                    # the map's first anchor must be queryable for closure
+                    self.loop_closer.insert_from_state(self.state, i)
             elif i - self._init_ref >= self.cfg.init.max_defer:
                 self._init_ref = i - 1
         else:
             self._step(i, st)
         st.last_kf = self._last_kf
-        self.stats.append(st)
-        if st.is_keyframe:
-            self._keyframes.append(i)
-        if self._auto_steer:
-            self._pending.append(st)
-            while len(self._pending) > self.cfg.stat_lag:
-                self._update_steer_health(self._pending.pop(0))
+        self._enqueue(st)
         return st
 
     def _step(self, i: int, st: FrameStats) -> None:
@@ -293,14 +337,155 @@ class SlamSession:
             if m.enabled and is_kf:
                 self.state, st.n_culled = mapping.cull_points(
                     self.state, i, min_obs=m.cull_min_obs, grace=m.cull_grace)
+        lc = self.loop_closer
+        if lc is not None:
+            _, det = lc_mod.detect_step(lc.voc, lc.lc, lc._db, self.state, i, bool(is_kf))
+            st._set_detect(det)
+
+    # --- lagged host processing: closures, relocalization, FrameCulling ----------
+    def _enqueue(self, st: FrameStats) -> None:
+        self.stats.append(st)
+        if self.loop_closer is None and not self._auto_steer:
+            return
+        self._pending.append(st)
+        self._drain(force=False)
+
+    def _drain(self, force: bool) -> None:
+        """Process pending frame outcomes once they are `stat_lag` frames old
+        (all of them with `force`)."""
+        lag = self.cfg.stat_lag
+        if self._cull_pending is not None and (force or self._next - self._cull_pending[2] > lag):
+            self._cull_apply()
+        while self._pending and (force or len(self._pending) > lag):
+            self._process_stat(self._pending.pop(0))
+
+    def _process_stat(self, st: FrameStats) -> None:
+        i = st.frame
+        self._fold_kf_upto(i + 1)
+        if self._auto_steer:
+            self._update_steer_health(st)
+        lc = self.loop_closer
+        if lc is None:
+            return
+        if not st.tracked:
+            self._fail_streak += 1
+            if self._fail_streak >= self.cfg.track.reloc_after:
+                self._try_relocalize()
+            return
+        self._fail_streak = 0
+        if not st.is_keyframe:
+            return
+        self._kf_since_cull += 1
+        m = self.cfg.mapping
+        if (self._kf_since_cull >= m.kf_cull_every and self._cull_pending is None
+                and len(self._keyframes_known()) > m.kf_keep_recent + 1):
+            self._kf_since_cull = 0
+            self._cull_dispatch()
+        j = lc.offer(i, st.cand_j, st.cand_score, st.cand_floor, st.cand_n)
+        if j is not None and j not in self._kf_culled:
+            # the graph spans every ever-promoted keyframe: culled ones keep
+            # their poses and stay valid vertices
+            with torch.inference_mode():
+                self.state, closed = lc.close(self.state, i, j, self.gen,
+                                              keyframes=list(self._keyframes))
+            st.loop_closed = closed
+
+    def _try_relocalize(self) -> None:
+        """Relocalize the newest ingested frame against the BoW-nearest
+        resident keyframes (the failure is seen `stat_lag` frames late; the
+        newest frame is the one the next step can chain from)."""
+        lc = self.loop_closer
+        i = self._next - 1
+        newest = self.stats[i]
+        if newest.tracked:
+            self._fail_streak = 0
+            return
+        if int(self.state.slot_of[i]) < 0:
+            return
+        with torch.inference_mode():
+            scores = lc.reloc_scores(self.state, i).cpu().numpy()
+            slot_of = self.state.slot_of.cpu().numpy()
+            pose_valid = self.state.pose_valid.cpu().numpy()
+            cands = [int(f) for f in np.argsort(-scores)
+                     if np.isfinite(scores[f]) and f < i and slot_of[f] >= 0 and pose_valid[f]]
+            for cand in cands[: self.cfg.track.reloc_candidates]:
+                self.reloc_attempts += 1
+                res = tracker.relocalize(self.state, i, cand, self.gen, self.cfg)
+                ok, n = torch.stack([res.ok.to(torch.int64), res.n_inliers.to(torch.int64)]).tolist()
+                if ok:
+                    self.reloc_successes += 1
+                    self.state = res.state
+                    newest.tracked = True
+                    newest.n_inliers = n
+                    self._fail_streak = 0
+                    return
+
+    def _cull_dispatch(self) -> None:
+        """FrameCulling on the current state; its flags are applied
+        `stat_lag` frames later, as in the reference."""
+        m = self.cfg.mapping
+        kfs = self._keyframes_known() if self.loop_closer is not None else self.keyframes
+        if len(kfs) <= m.kf_keep_recent + 1:
+            return
+        F = self.cfg.max_frames
+        flags = np.zeros(F, bool)
+        flags[kfs] = True
+        protect = np.zeros(F, bool)
+        protect[kfs[0]] = True
+        protect[kfs[-m.kf_keep_recent:]] = True
+        with torch.inference_mode():
+            flags_dev = kf_mod.cull_frames_device(
+                self.state, flags, protect, redundancy=m.kf_cull_redundancy,
+                min_other_obs=m.kf_cull_min_other_obs)
+        self._cull_pending = (flags_dev, kfs, self._next)
+
+    def _cull_apply(self) -> list[int]:
+        if self._cull_pending is None:
+            return []
+        flags_dev, kfs, _ = self._cull_pending
+        self._cull_pending = None
+        new_flags = flags_dev.cpu().numpy()
+        culled = [f for f in kfs if not new_flags[f]]
+        self._kf_culled.update(culled)
+        if culled and self.loop_closer is not None:
+            # culled keyframes leave the candidate set and the floor; their
+            # remembered loop edges stay (the pose is still a graph vertex)
+            self.loop_closer.clear_rows(culled)
+        return culled
+
+    def cull_redundant_keyframes(self) -> list[int]:
+        """Synchronous FrameCulling pass; returns the newly culled frames."""
+        self._cull_apply()
+        self._cull_dispatch()
+        return self._cull_apply()
+
+    def _fold_kf_upto(self, n: int) -> None:
+        while self._kf_scanned < n:
+            s = self.stats[self._kf_scanned]
+            if s.is_keyframe:
+                self._keyframes.append(s.frame)
+            self._kf_scanned += 1
+
+    def _keyframes_known(self) -> list[int]:
+        return [f for f in self._keyframes if f not in self._kf_culled]
+
+    def flush(self) -> None:
+        """Process every pending per-frame outcome now."""
+        self._drain(force=True)
 
     # --- outputs ---------------------------------------------------------------
     @property
     def keyframes(self) -> list[int]:
-        return list(self._keyframes)
+        """Live keyframes (FrameCulling victims excluded); processes pending
+        outcomes first."""
+        self._drain(force=True)
+        self._fold_kf_upto(len(self.stats))
+        return self._keyframes_known()
 
     def trajectory(self):
-        """(poses (n, 3, 4), valid (n,), timestamps (n,)) as numpy."""
+        """(poses (n, 3, 4), valid (n,), timestamps (n,)) as numpy, after
+        pending loop-closure work."""
+        self._drain(force=True)
         n = self._next
         return (
             self.state.poses[:n].cpu().numpy(),
@@ -309,6 +494,7 @@ class SlamSession:
         )
 
     def map_points(self) -> np.ndarray:
+        self._drain(force=True)
         pts = self.state.points.cpu().numpy()
         return pts[self.state.point_valid.cpu().numpy()]
 

@@ -1,6 +1,6 @@
-"""Tracker: two-view bootstrap + PnP tracking with projection association
-(counterpart of `bootstrap`, `track` and their helpers in
-`monocular_slam_tpu/slam/tracker.py`; relocalization is not ported yet).
+"""Tracker: two-view bootstrap, PnP tracking with projection association
+and relocalization (counterpart of `bootstrap`, `track`, `relocalize` and
+their helpers in `monocular_slam_tpu/slam/tracker.py`).
 
 Frame ids `i`, `f0`, `f1` are host ints (the session knows them); every
 quantity derived from the state stays on the device, and a failed step
@@ -117,6 +117,52 @@ def bootstrap(state: SlamState, gen, cfg: SlamConfig, f0: int = 0, f1: int = 1,
     new_state = new_state._replace(poses=poses, pose_valid=pose_valid, feat_point=feat_point)
     final = state_mod.select(ok, new_state, state)
     return BootstrapResult(final, ok, res.num_inliers, (slot_ids >= 0).sum())
+
+
+class RelocResult(NamedTuple):
+    state: SlamState
+    ok: torch.Tensor
+    n_inliers: torch.Tensor
+
+
+def relocalize(state: SlamState, i: int, cand: int, gen, cfg: SlamConfig, u=None) -> RelocResult:
+    """Re-acquire lost frame i against keyframe `cand` (chosen on the host
+    by BoW score): descriptor match through K2 -> the candidate's map
+    associations -> PnP RANSAC -> GN motion-only refine. Writes the pose
+    and the inlier associations. `u`: optional (pnp_iters, N) uniforms."""
+    si = state_mod.slot_index(state, i)
+    sc = state_mod.slot_index(state, cand)
+    cand_ok = (state.slot_of[cand] >= 0) & state.pose_valid[cand]
+    m = matching.match(
+        take(state.desc_pm1, si).contiguous(), take(state.desc_pm1, sc).contiguous(),
+        take(state.kp_valid, si), take(state.kp_valid, sc) & cand_ok,
+        ratio=cfg.frontend.match_ratio_init, max_dist=cfg.frontend.max_hamming,
+        use_kernel=True,
+    )
+    pid = take(state.feat_point, sc)[m.idx.long()]
+    pids = torch.clamp(pid, min=0).long()
+    has = m.ok & (pid >= 0) & state.point_valid[pids]
+    X = state.points[pids]
+    uv_i = take(state.kp_uv, si)
+    k_i = state.k[i]
+    pres = pnp.solve_pnp_ransac(
+        gen, X, uv_i, k_i, has & take(state.kp_valid, si), n_iters=cfg.track.pnp_iters,
+        px_thresh=cfg.track.pnp_px_thresh, min_inliers=cfg.track.reloc_min_inliers, u=u,
+    )
+    rres = pose_ba.refine_pose(pres.T, X, uv_i, k_i, (pres.inliers & has).to(uv_i.dtype),
+                               n_rounds=3)
+    n = torch.maximum(pres.n_inliers, rres.n_inliers)
+    ok = (n >= cfg.track.reloc_min_inliers) & cand_ok
+    use_ref = rres.n_inliers >= pres.n_inliers
+    inl = torch.where(use_ref, rres.inliers, pres.inliers) & has
+    fp_i = torch.where(inl, pid, take(state.feat_point, si))
+    poses = state.poses.clone()
+    poses[i] = torch.where(use_ref, rres.T, pres.T)
+    pose_valid = state.pose_valid.clone()
+    pose_valid[i] = True
+    new_state = state._replace(poses=poses, pose_valid=pose_valid,
+                               feat_point=put(state.feat_point, si, fp_i))
+    return RelocResult(state_mod.select(ok, new_state, state), ok, n)
 
 
 class TrackResult(NamedTuple):

@@ -8,6 +8,10 @@ card the same trap is TF32 — cuBLAS matmuls under
 default to TF32. The policy here turns both off once, so every f32 product
 in the port is a full-precision product and the `*_hp` helpers of the
 reference become plain torch ops.
+
+The port's entry points (`SlamSession`, `render_sequence`, `LoopCloser`,
+`vocabulary.load_default`, ...) run on the card unless the caller asks for
+the CPU with `device="cpu"`.
 """
 
 from __future__ import annotations
@@ -23,13 +27,15 @@ def apply_precision_policy() -> None:
 
 
 def resolve_device(device=None) -> torch.device:
-    """`torch.device` for `device` (default CPU), with the precision policy
-    applied. Raises when CUDA is asked for and absent: nothing falls back to
-    the CPU silently."""
-    dev = torch.device("cpu" if device is None else device)
+    """`torch.device` for `device` (default: the CUDA card), with the
+    precision policy applied. Raises when CUDA is asked for, or defaulted
+    to, and absent: nothing falls back to the CPU; pass `device="cpu"` to
+    run there."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"device {dev} requested but torch.cuda.is_available() is False"
+            f"device {dev} requested but torch.cuda.is_available() is False "
+            "(pass device='cpu' to run on the CPU)"
         )
     apply_precision_policy()
     return dev

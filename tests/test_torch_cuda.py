@@ -1,5 +1,5 @@
-"""K1 and the session on an NVIDIA GPU. Marked `cuda`: each test skips on
-a machine without a card (`chip_smoke.py` runs the same checks at the
+"""K1, K2 and the sessions on an NVIDIA GPU. Marked `cuda`: each test skips
+on a machine without a card (`chip_smoke.py` runs the same checks at the
 benchmark's full size on the card)."""
 
 import numpy as np
@@ -74,3 +74,110 @@ def test_session_on_cuda(cuda):
     poses, valid, _ = sess.trajectory()
     assert valid.sum() >= 10 and np.isfinite(poses).all()
     assert ate.ate(poses[valid], gt[valid]).rmse < 0.04
+
+
+# --- K2 -------------------------------------------------------------------------
+
+
+def _pm1(dev, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 2, (n, 256), generator=g, device=dev, dtype=torch.int8) * 2 - 1
+
+
+@pytest.mark.parametrize("case", ["odd", "ties", "all_invalid", "single_valid", "one_query"])
+def test_k2_matches_plain(cuda, case):
+    from monocular_slam_tpu_torch.ops import hamming
+
+    if case == "odd":
+        a, b = _pm1(cuda, 97, 1), _pm1(cuda, 1235, 2)
+        bv = torch.rand(1235, device=cuda) > 0.2
+    elif case == "ties":
+        a = _pm1(cuda, 300, 3)
+        b = torch.cat([_pm1(cuda, 200, 4), a, a, a[:50]]).contiguous()
+        bv = torch.ones(b.shape[0], dtype=torch.bool, device=cuda)
+        bv[250] = False
+    elif case == "all_invalid":
+        a, b = _pm1(cuda, 33, 5), _pm1(cuda, 129, 6)
+        bv = torch.zeros(129, dtype=torch.bool, device=cuda)
+    elif case == "single_valid":
+        a, b = _pm1(cuda, 40, 7), _pm1(cuda, 300, 8)
+        bv = torch.zeros(300, dtype=torch.bool, device=cuda)
+        bv[257] = True
+    else:
+        a, b = _pm1(cuda, 1, 9), _pm1(cuda, 5000, 10)
+        bv = torch.ones(5000, dtype=torch.bool, device=cuda)
+    before = hamming.LAUNCHES
+    k = hamming.hamming_top2(a, b, bv)
+    torch.cuda.synchronize()
+    assert hamming.LAUNCHES == before + 1
+    p = hamming.hamming_top2_plain(a, b, bv)
+    for x, y in zip(k, p):
+        assert x.dtype == torch.int32 and torch.equal(x, y)
+    if case == "all_invalid":
+        assert (k[0] == hamming.BIG).all() and (k[2] == 0).all()
+    if case == "single_valid":
+        assert (k[2] == 257).all() and (k[1] == hamming.BIG).all()
+
+
+def test_k2_rejects_bad_input(cuda):
+    from monocular_slam_tpu_torch.ops import hamming
+
+    a = _pm1(cuda, 8, 0)
+    bv = torch.ones(8, dtype=torch.bool, device=cuda)
+    bad = [
+        (a.float(), a, bv), (a, a[:, :128].contiguous(), bv), (a, a, bv.int()),
+        (a.t().contiguous().t(), a, bv), (a.cpu(), a, bv), (a, a, bv[:4]),
+        (a[:, 1:].contiguous(), a[:, 1:].contiguous(), bv),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            hamming.hamming_top2_cuda(*args)
+
+
+def test_k2_match_route(cuda):
+    from monocular_slam_tpu_torch.ops import hamming, matching
+
+    a = _pm1(cuda, 500, 11)
+    b = torch.cat([a[:400], _pm1(cuda, 100, 12)])
+    b = torch.where(torch.rand(b.shape, device=cuda) < 0.05, -b, b).contiguous()
+    av = torch.rand(500, device=cuda) > 0.1
+    bv = torch.rand(500, device=cuda) > 0.1
+    before = hamming.LAUNCHES
+    mk = matching.match(a, b, av, bv, use_kernel=True)
+    assert hamming.LAUNCHES == before + 2  # forward pass and the cross-check pass
+    md = matching.match(a, b, av, bv, use_kernel=False)
+    assert hamming.LAUNCHES == before + 2
+    assert torch.equal(mk.ok, md.ok) and int(mk.n_matches) > 300
+    assert torch.equal(mk.idx[mk.ok], md.idx[md.ok])
+    # the default route takes K2 for a single database of >= 4096 rows
+    big = _pm1(cuda, matching.PALLAS_MIN_DB, 13)
+    matching.match(a, big, av, torch.ones(big.shape[0], dtype=torch.bool, device=cuda))
+    assert hamming.LAUNCHES == before + 4
+
+
+def test_loop_closer_session_on_cuda(cuda):
+    """A 320x240 loop-closing session on the card: detection every frame,
+    relocalization through K2 after a blackout, finite poses."""
+    from monocular_slam_tpu_torch.datasets import render
+    from monocular_slam_tpu_torch.ops import hamming
+    from monocular_slam_tpu_torch.retrieval import vocabulary
+    from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
+    from monocular_slam_tpu_torch.slam.loop_closer import LoopCloser, LoopClosureConfig
+    from monocular_slam_tpu_torch.slam.session import SlamSession
+
+    imgs, gt, k = render.render_sequence(seed=3, n_frames=20, wh=(320, 240), device=cuda)
+    cfg = SlamConfig(max_frames=32, max_points=4000, image_wh=(320, 240),
+                     frontend=FrontendConfig(n_features=600))
+    lc = LoopCloser(vocabulary.load_default(), cfg, LoopClosureConfig(min_gap=5))
+    sess = SlamSession(cfg, seed=0, loop_closer=lc)
+    # longer than reloc_after + stat_lag, so the newest frame is still noise
+    # when the failure streak is read
+    noise = 255.0 * torch.rand((8, 240, 320), device=cuda)
+    frames = torch.cat([imgs[:12], torch.floor(noise), imgs[12:]])
+    hamming.LAUNCHES = 0
+    for i in range(frames.shape[0]):
+        sess.add_frame(frames[i], k, i / 30.0)
+    poses, valid, _ = sess.trajectory()
+    assert sess.reloc_attempts >= 1 and hamming.LAUNCHES >= 2
+    assert np.isfinite(poses).all() and valid[:12].all()
+    assert lc._db.abs().sum() > 0

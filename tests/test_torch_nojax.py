@@ -23,16 +23,27 @@ from monocular_slam_tpu_torch.datasets import render
 from monocular_slam_tpu_torch.ops import features
 from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
 from monocular_slam_tpu_torch.slam.session import SlamSession
-imgs, gt, k = render.render_sequence(seed=2, n_frames=3, wh=(160, 120), tex_size=256)
+imgs, gt, k = render.render_sequence(seed=2, n_frames=3, wh=(160, 120), tex_size=256, device="cpu")
 f = features.extract(imgs[0], n_features=200)
 assert f.uv.shape == (200, 2) and int(f.valid.sum()) > 20
 cfg = SlamConfig(max_frames=4, max_points=500, image_wh=(160, 120),
                  frontend=FrontendConfig(n_features=200))
-sess = SlamSession(cfg, seed=0)
+sess = SlamSession(cfg, seed=0, device="cpu")
 for i in range(3):
     sess.add_frame(imgs[i], k, i / 30.0)
 poses, valid, _ = sess.trajectory()
 assert poses.shape == (3, 3, 4) and np.isfinite(poses).all()
+# a few loop-closing frames: detection every frame, the bundled vocabulary
+from monocular_slam_tpu_torch.retrieval import vocabulary
+from monocular_slam_tpu_torch.slam.loop_closer import LoopCloser
+lc = LoopCloser(vocabulary.load_default(device="cpu"), cfg, device="cpu")
+sess = SlamSession(cfg, seed=0, loop_closer=lc, device="cpu")
+for i in range(3):
+    sess.add_frame(imgs[i], k, i / 30.0)
+sess.flush()
+assert lc._db.shape == (4, 10**4) and sess.stats[-1].cand_j >= -1
+q = vocabulary.bow_vector(lc.voc, f.desc_pm1, f.valid)
+assert abs(float(q.sum()) - 1.0) < 1e-5
 print("modules", len(names))
 """
 

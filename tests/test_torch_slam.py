@@ -133,7 +133,7 @@ def test_slot_eviction_matches_reference():
     jcfg, tcfg = _cfgs()
     jcfg = dataclasses.replace(jcfg, max_slots=3, track=dataclasses.replace(jcfg.track, back_traverse=1))
     tcfg = dataclasses.replace(tcfg, max_slots=3, track=dataclasses.replace(tcfg.track, back_traverse=1))
-    js, ts = JSession(jcfg), SlamSession(tcfg)
+    js, ts = JSession(jcfg), SlamSession(tcfg, device="cpu")
     js._keyframes, ts._keyframes = [1], [1]
 
     def outcome(sess, i):
@@ -158,4 +158,5 @@ def test_unported_cadence_raises():
 
     _, tcfg = _cfgs()
     with pytest.raises(NotImplementedError):
-        SlamSession(dataclasses.replace(tcfg, ba=dataclasses.replace(tcfg.ba, keyframe_only=False)))
+        SlamSession(dataclasses.replace(tcfg, ba=dataclasses.replace(tcfg.ba, keyframe_only=False)),
+                    device="cpu")

@@ -236,7 +236,7 @@ def test_slice_against_reference(course, reference_run):
     max(1.5 x reference ATE, reference + 0.5 cm)."""
     imgs, gt, k, _ = course
     cfg = SlamConfig(frontend=FrontendConfig(n_features=N_FEAT), **_cfg_kw())
-    sess = TSession(cfg, seed=0, run_ba=True)
+    sess = TSession(cfg, seed=0, run_ba=True, device="cpu")
     for i in range(COURSE_FRAMES):
         sess.add_frame(imgs[i], k, i / 30.0)
     poses, valid, stamps = sess.trajectory()
