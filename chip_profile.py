@@ -1,6 +1,15 @@
 """Where the loop-closing session's time goes, on one NVIDIA GPU.
 
-    python3 chip_profile.py
+    python3 chip_profile.py          # the loop course, split by stage
+    python3 chip_profile.py window   # the tracker's window: dense vs K2
+
+`window`: the 60-frame session of `chip_smoke.py` four times in one
+process, the tracker's back-traverse window on the dense route, on K2, on
+K2, on the dense route (fps over frames 10-59 each), then one more run of
+each route with `tracker._window_matches` wrapped in
+`torch.cuda.synchronize()` (ms per call). Prints one JSON object per line.
+
+Without an argument:
 
 Runs the `loop` course of `chip_smoke.py` (112 rendered 640x480 frames that
 revisit the start, 8 frames of uniform noise after frame 40; max_frames 128,
@@ -86,6 +95,39 @@ def first_calls() -> dict:
     return out
 
 
+def window_ab(smi: str) -> int:
+    import chip_smoke as cs
+    from monocular_slam_tpu_torch.datasets import render
+    from monocular_slam_tpu_torch.slam import tracker
+
+    imgs, poses_gt, k = render.render_sequence(seed=11, n_frames=cs.N_FRAMES, wh=cs.WH,
+                                               device="cuda")
+    cs.run_session(imgs, poses_gt, k, count_syncs=False)  # builds K1, K2; warms up
+    fps = {"dense": [], "k2": []}
+    for route in ("dense", "k2", "k2", "dense"):
+        out = cs.run_session(imgs, poses_gt, k, count_syncs=False, dense_window=route == "dense")
+        fps[route].append(out["fps_10_59"])
+        print(json.dumps({"route": route, "fps_10_59": out["fps_10_59"], "ate_m": out["ate_m"],
+                          "tracked": out["tracked"]}), flush=True)
+    per_call = {}
+    for route in ("dense", "k2"):
+        t = StageTimer()
+        if route == "dense":
+            plain = tracker._window_matches
+            tracker._window_matches = functools.partial(plain, use_kernel=False)
+            t._undo.append((tracker, "_window_matches", plain))
+        t.wrap(tracker, "_window_matches", "window")
+        t.wrap(tracker, "track", "track")
+        try:
+            cs.run_session(imgs, poses_gt, k, count_syncs=False)
+        finally:
+            t.restore()
+        per_call[route] = {n: t.ms[n] / t.calls[n] for n in t.ms}
+    print(json.dumps({"device": smi, "fps_10_59": fps, "ms_per_call_synchronized": per_call}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: needs an NVIDIA GPU", file=sys.stderr)
@@ -101,6 +143,8 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi, flush=True)
+    if sys.argv[1:] == ["window"]:
+        return window_ab(smi)
     print(json.dumps({"first_and_second_call_ms": first_calls()}), flush=True)
     fast_score.load()
     hamming.load()
@@ -120,7 +164,7 @@ def main() -> int:
     t.wrap(mapping, "cull_points", "mapping.cull_points")
     t.wrap(mapping, "frame_overlap", "mapping.frame_overlap")
     t.wrap(loop_closer, "detect_step", "loop_closer.detect_step")
-    t.wrap(hamming, "match_kernel", "K2 match (compute_sim3, relocalize)")
+    t.wrap(hamming, "match_kernel", "K2 match (window, compute_sim3, relocalize)")
     t.wrap(alignment, "ransac_sim3_reproj", "Sim3 RANSAC + polish")
     t.wrap(loop_closer.LoopCloser, "_correct_impl", "pose graph + propagation")
     t.wrap(loop_closer.LoopCloser, "_gba_impl", "global BA")

@@ -1,14 +1,18 @@
-"""K1: fused FAST-9 score + 3x3 NMS, as a CUDA kernel written for Hopper
-(counterpart of `monocular_slam_tpu/ops/pallas/fast_score.py:corner_maps`).
+"""K1: fused FAST-9 score + 3x3 NMS over every pyramid level of a frame, as
+a CUDA kernel written for Hopper (counterpart of
+`monocular_slam_tpu/ops/pallas/fast_score.py:corner_maps`).
 
-`corner_maps(img, threshold)` returns (nms_score, raw_score) for one
-(H, W) float32 image:
+`corner_maps_levels(levels, threshold)` returns one (nms_score, raw_score)
+pair per (H_l, W_l) float32 level:
 
-  - on a CUDA tensor it launches the kernel in `csrc/fast_score.cu` on the
-    current stream and adds one to `LAUNCHES`; anything the kernel does not
-    take raises, and a kernel that fails to build or launch raises;
-  - on a CPU tensor it returns `corner_maps_plain`, the same maps from the
-    whole-image tensor forms of `ops/fast.py`.
+  - on CUDA tensors it launches the kernel in `csrc/fast_score.cu` once for
+    all levels on the current stream, into one allocation for every map,
+    and adds one to `LAUNCHES`; anything the kernel does not take raises,
+    and a kernel that fails to build or launch raises;
+  - on CPU tensors it returns `corner_maps_levels_plain`, the same maps from
+    the whole-image tensor forms of `ops/fast.py`.
+
+`corner_maps(img, threshold)` is the one-level case of the same kernel.
 
 The kernel is compiled at first use with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, under `_build/` beside this package and
@@ -24,54 +28,96 @@ import torch
 from monocular_slam_tpu_torch.ops import fast
 from monocular_slam_tpu_torch.utils import cuda_build
 
-LAUNCHES = 0  # kernel launches by `corner_maps` in this process
+LAUNCHES = 0  # kernel launches by `corner_maps_levels` in this process
+MAX_LEVELS = 8  # K1_MAX_LEVELS in csrc/fast_score.cu
 
 _lib = None
 BUILD_INFO: dict = {}  # filled by `load()`: path, seconds, log
 
 
+class _LevelTable(ctypes.Structure):
+    """`K1LevelTable` of csrc/fast_score.cu."""
+
+    _fields_ = [
+        ("img", ctypes.c_void_p * MAX_LEVELS),
+        ("nms", ctypes.c_void_p * MAX_LEVELS),
+        ("raw", ctypes.c_void_p * MAX_LEVELS),
+        ("H", ctypes.c_int * MAX_LEVELS),
+        ("W", ctypes.c_int * MAX_LEVELS),
+        ("tiles_x", ctypes.c_int * MAX_LEVELS),
+        ("tile0", ctypes.c_int * (MAX_LEVELS + 1)),
+        ("n_levels", ctypes.c_int),
+    ]
+
+
 def corner_maps_plain(img: torch.Tensor, threshold: float = 20.0):
-    """(nms, raw) maps by the plain tensor formulation."""
+    """(nms, raw) maps of one level by the plain tensor formulation."""
     return fast.nms3(fast.corner_score(img, threshold)), fast.corner_score_raw(img)
+
+
+def corner_maps_levels_plain(levels, threshold: float = 20.0):
+    """`corner_maps_plain` of every level."""
+    return [corner_maps_plain(img, threshold) for img in levels]
 
 
 def load():
     """The kernel library, built if needed and loaded once per process."""
     global _lib
     if _lib is None:
-        _lib = cuda_build.load("fast_score", BUILD_INFO, "fast_corner_maps", [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        _lib = cuda_build.load("fast_score", BUILD_INFO, "fast_corner_maps_levels", [
+            ctypes.POINTER(_LevelTable), ctypes.c_float, ctypes.c_void_p,
         ])
     return _lib
 
 
-def corner_maps(img: torch.Tensor, threshold: float = 20.0):
-    """(nms_score, raw_score) maps of one (H, W) float32 image. The nms map
-    equals `fast.nms3(fast.corner_score(img, threshold))`; the raw map
-    equals `fast.corner_score_raw(img)` at least 3 pixels from the edge."""
+def corner_maps_levels(levels, threshold: float = 20.0):
+    """[(nms_score, raw_score)] of each (H_l, W_l) float32 level. Each nms
+    map equals `fast.nms3(fast.corner_score(level, threshold))`; each raw
+    map equals `fast.corner_score_raw(level)` at least 3 pixels from that
+    level's edge."""
     global LAUNCHES
-    if img.device.type == "cpu":
-        return corner_maps_plain(img, threshold)
-    if img.device.type != "cuda":
-        raise ValueError(f"corner_maps: unsupported device {img.device}")
-    if img.dim() != 2 or img.dtype != torch.float32 or not img.is_contiguous():
-        raise ValueError(
-            f"corner_maps takes a contiguous 2-D float32 tensor, got "
-            f"{tuple(img.shape)} {img.dtype} contiguous={img.is_contiguous()}"
-        )
-    H, W = img.shape
-    if H == 0 or W == 0:
-        raise ValueError("corner_maps: empty image")
+    n = len(levels)
+    if not 1 <= n <= MAX_LEVELS:
+        raise ValueError(f"corner_maps_levels takes 1 to {MAX_LEVELS} levels, got {n}")
+    if not levels[0].is_cuda:
+        if all(x.device.type == "cpu" for x in levels):
+            return corner_maps_levels_plain(levels, threshold)
+        raise ValueError(f"corner_maps_levels: unsupported device {levels[0].device}")
+    dev = levels[0].get_device()
+    for img in levels:
+        if (img.get_device() != dev or img.dim() != 2 or img.dtype != torch.float32
+                or not img.is_contiguous() or img.numel() == 0):
+            raise ValueError(
+                f"corner_maps_levels takes non-empty contiguous 2-D float32 tensors on one "
+                f"card, got {tuple(img.shape)} {img.dtype} on {img.device} "
+                f"contiguous={img.is_contiguous()}"
+            )
+    if dev != torch.cuda.current_device():
+        raise ValueError(f"corner_maps_levels: cuda:{dev} is not the current device "
+                         f"cuda:{torch.cuda.current_device()}")
     lib = load()
-    nms = torch.empty_like(img)
-    raw = torch.empty_like(img)
-    with torch.cuda.device(img.device):
-        err = lib.fast_corner_maps(
-            img.data_ptr(), nms.data_ptr(), raw.data_ptr(), H, W,
-            float(threshold), cuda_build.stream_of(img),
-        )
+    # one allocation: (nms, raw) of level 0, then of level 1, ...; the views
+    # come from one call
+    buf = torch.empty(2 * sum(img.numel() for img in levels), dtype=torch.float32,
+                      device=levels[0].device)
+    maps = torch._utils._unflatten_dense_tensors(buf, [img for img in levels for _ in (0, 1)])
+    table = _LevelTable(n_levels=n)
+    table.img[:n] = [img.data_ptr() for img in levels]
+    table.nms[:n] = [m.data_ptr() for m in maps[0::2]]
+    table.raw[:n] = [m.data_ptr() for m in maps[1::2]]
+    table.H[:n] = [img.shape[0] for img in levels]
+    table.W[:n] = [img.shape[1] for img in levels]
+    err = lib.fast_corner_maps_levels(ctypes.byref(table), float(threshold),
+                                      cuda_build.current_stream())
     if err != 0:
-        raise RuntimeError(f"fast_corner_maps launch failed: CUDA error {err}")
+        raise RuntimeError(f"fast_corner_maps_levels launch failed: CUDA error {err}")
     LAUNCHES += 1
-    return nms, raw
+    return list(zip(maps[0::2], maps[1::2]))
+
+
+def corner_maps(img: torch.Tensor, threshold: float = 20.0):
+    """(nms_score, raw_score) maps of one (H, W) float32 image: the
+    one-level case of `corner_maps_levels`."""
+    if img.dim() != 2:
+        raise ValueError(f"corner_maps takes a 2-D image, got {tuple(img.shape)}")
+    return corner_maps_levels([img], threshold)[0]

@@ -1,8 +1,9 @@
 """ORB extraction over an image pyramid (counterpart of
 `monocular_slam_tpu/ops/features.py`).
 
-Per level: K1 corner maps (`ops/fast_score.corner_maps` — the CUDA kernel on
-a card, its plain version on the CPU), exact top-k of the NMS map with the
+K1 corner maps of every level at once (`ops/fast_score.corner_maps_levels`
+— one CUDA kernel launch per frame on a card, the plain version on the
+CPU); then per level: exact top-k of the NMS map with the
 reference's lowest-index-first tie order, the ORB edge gate, orientation,
 steered BRIEF on the blurred level, and the sub-pixel parabola from the raw
 map. The keypoint budget is split geometrically (1/1.2) across levels.
@@ -31,21 +32,22 @@ def extract(
     n_levels: int = pyramid.N_LEVELS,
     fast_threshold: float = 20.0,
     steer_mode: str = "binned",
-    maps_fn=None,
+    levels_maps_fn=None,
 ) -> orb.Features:
     """ORB features of a grayscale (H, W) image in [0, 255], exactly
-    n_features slots. `maps_fn(img, t) -> (nms, raw)` defaults to
-    `fast_score.corner_maps`."""
-    if maps_fn is None:
-        maps_fn = fast_score.corner_maps
+    n_features slots. `levels_maps_fn(levels, t) -> [(nms, raw)]` computes
+    the corner maps of all pyramid levels; it defaults to
+    `fast_score.corner_maps_levels`."""
+    if levels_maps_fn is None:
+        levels_maps_fn = fast_score.corner_maps_levels
     img = img.to(torch.float32).contiguous()
-    levels = pyramid.build_pyramid(img, n_levels)
+    levels = [x.contiguous() for x in pyramid.build_pyramid(img, n_levels)]
     budgets = _level_budgets(n_features, n_levels)
+    maps = levels_maps_fn(levels, fast_threshold)
 
     out = {n: [] for n in orb.Features._fields}
-    for lvl, (im_l, budget) in enumerate(zip(levels, budgets)):
+    for lvl, (im_l, budget, (nms_map, raw_map)) in enumerate(zip(levels, budgets, maps)):
         sc = pyramid.level_scale(lvl)
-        nms_map, raw_map = maps_fn(im_l.contiguous(), fast_threshold)
         vals, idx = topk_stable(nms_map.reshape(-1), budget)
         Hl, Wl = im_l.shape
         yx = torch.stack([idx // Wl, idx % Wl], dim=-1).to(img.dtype)

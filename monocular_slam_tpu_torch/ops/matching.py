@@ -5,10 +5,13 @@ dist = (256 - a_pm1 . b_pm1) / 2 on the +-1 expansion. The dense route
 materializes the (N, M) table: CUDA has no int8 or int32 `torch.matmul`,
 so the product runs in float32 (|dot| <= 256, every partial sum is an
 integer below 2^24, and with TF32 off it is exact). The kernel route is K2
-(`ops/hamming.py`), which keeps only a running top-2 per query row. As in
-the reference, `match(use_kernel=None)` takes K2 for a single database of
-at least PALLAS_MIN_DB rows on the card; the loop-closing callers
-(`LoopCloser.compute_sim3`, `tracker.relocalize`) ask for it explicitly.
+(`ops/hamming.py`), which keeps only a running top-2 per query row and
+returns the same `Matches` on every row. On the card, `match(use_kernel=
+None)` takes K2 for a batch of databases (the tracker's back-traverse
+window: two launches, forward and cross-check) and, as in the reference,
+for a single database of at least PALLAS_MIN_DB rows; the loop-closing
+callers (`LoopCloser.compute_sim3`, `tracker.relocalize`) ask for it
+explicitly. On the CPU the default is the dense route.
 """
 
 from __future__ import annotations
@@ -42,11 +45,12 @@ def match(a_pm1, b_pm1, a_valid, b_valid, ratio: float = FEATURE_MATCH_RATIO_TES
           max_dist: int = 256, cross_check: bool = True, use_kernel: bool | None = None) -> Matches:
     """Lowe-ratio kNN matching; invalid rows/cols sit at distance 1<<20.
     `b_pm1` (..., M, 256) and `b_valid` (..., M) may carry leading batch
-    dims on the dense route: one query set against several databases at
-    once. `use_kernel=True` routes a single (M, 256) database to K2."""
+    dims: one query set against several databases at once (K2 takes one
+    batch dim). `use_kernel=True` routes to K2, `False` to the dense table;
+    both give the same `Matches`."""
     if use_kernel is None:
-        use_kernel = (b_pm1.device.type == "cuda" and b_pm1.dim() == 2
-                      and b_pm1.shape[0] >= PALLAS_MIN_DB)
+        use_kernel = b_pm1.is_cuda and (
+            b_pm1.dim() == 3 or (b_pm1.dim() == 2 and b_pm1.shape[0] >= PALLAS_MIN_DB))
     if use_kernel:
         return hamming.match_kernel(a_pm1, b_pm1, a_valid, b_valid, ratio=ratio,
                                     max_dist=max_dist, cross_check=cross_check)

@@ -183,9 +183,10 @@ def _window_frames(state: SlamState, i: int, cfg: SlamConfig):
     return torch.clamp(js, min=0).long(), js >= 0
 
 
-def _window_matches(state: SlamState, i: int, cfg: SlamConfig):
+def _window_matches(state: SlamState, i: int, cfg: SlamConfig, use_kernel: bool | None = None):
     """Frame i matched against each frame of its back-traverse window, as
-    one batched match: idx/ok (B, N)."""
+    one batched match: idx/ok (B, N). On the card that is K2 in two
+    launches; `use_kernel` forces a route (`matching.match`)."""
     js_safe, js_ok = _window_frames(state, i, cfg)
     si = state_mod.slot_index(state, i)
     sjs = state_mod.slot_index(state, js_safe)
@@ -196,6 +197,7 @@ def _window_matches(state: SlamState, i: int, cfg: SlamConfig):
         state.kp_valid[sjs] & js_ok[:, None] & state.pose_valid[js_safe][:, None],
         ratio=cfg.frontend.match_ratio_track,
         max_dist=cfg.frontend.max_hamming,
+        use_kernel=use_kernel,
     )
     return js_safe, js_ok, m
 

@@ -67,8 +67,9 @@ def load(name: str, info: dict, fn: str, argtypes: list) -> ctypes.CDLL:
     return lib
 
 
-def stream_of(t) -> int:
-    """The current CUDA stream of `t`'s device, as the int ctypes passes."""
+def current_stream() -> int:
+    """The current CUDA stream of the current device, as the int ctypes
+    passes (the wrappers check that their tensors lie on that device)."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch.cuda.current_stream().cuda_stream

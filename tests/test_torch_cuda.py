@@ -40,6 +40,27 @@ def test_k1_matches_plain(cuda, hw):
     torch.testing.assert_close(raw_k[3:-3, 3:-3], raw_p[3:-3, 3:-3], rtol=0, atol=1e-5)
 
 
+def test_k1_all_levels_one_launch(cuda):
+    """The 8 levels of a 640x480 frame in one launch, each level's maps as
+    the plain version's; the one-level call on an odd shape."""
+    levels = [x.contiguous() for x in pyramid.build_pyramid(_image(cuda, 480, 640, seed=5))]
+    before = fast_score.LAUNCHES
+    maps = fast_score.corner_maps_levels(levels, 20.0)
+    torch.cuda.synchronize()
+    assert fast_score.LAUNCHES == before + 1
+    for img, (nms_k, raw_k), (nms_p, raw_p) in zip(
+            levels, maps, fast_score.corner_maps_levels_plain(levels, 20.0)):
+        assert nms_k.shape == img.shape
+        torch.testing.assert_close(nms_k, nms_p, rtol=0, atol=1e-5)
+        torch.testing.assert_close(raw_k[3:-3, 3:-3], raw_p[3:-3, 3:-3], rtol=0, atol=1e-5)
+    odd = _image(cuda, 101, 173, seed=6)
+    nms_k, raw_k = fast_score.corner_maps(odd, 20.0)
+    nms_p, raw_p = fast_score.corner_maps_plain(odd, 20.0)
+    assert fast_score.LAUNCHES == before + 2
+    torch.testing.assert_close(nms_k, nms_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(raw_k[3:-3, 3:-3], raw_p[3:-3, 3:-3], rtol=0, atol=1e-5)
+
+
 def test_k1_rejects_bad_input(cuda):
     with pytest.raises(ValueError):
         fast_score.corner_maps(torch.zeros(8, 8, device=cuda, dtype=torch.float64))
@@ -52,7 +73,8 @@ def test_k1_rejects_bad_input(cuda):
 def test_extract_kernel_equals_plain(cuda):
     img = pyramid.resize_bilinear(_image(cuda, 480, 640, seed=3), (240, 320))
     fk = features.extract(img, n_features=500)
-    fp = features.extract(img, n_features=500, maps_fn=fast_score.corner_maps_plain)
+    fp = features.extract(img, n_features=500,
+                          levels_maps_fn=fast_score.corner_maps_levels_plain)
     for a, b in zip(fk, fp):
         assert torch.equal(a, b)
 
@@ -70,7 +92,7 @@ def test_session_on_cuda(cuda):
     before = fast_score.LAUNCHES
     for i in range(12):
         sess.add_frame(imgs[i], k, i / 30.0)
-    assert fast_score.LAUNCHES - before == 8 * 12
+    assert fast_score.LAUNCHES - before == 12  # one K1 launch per frame, all levels
     poses, valid, _ = sess.trajectory()
     assert valid.sum() >= 10 and np.isfinite(poses).all()
     assert ate.ate(poses[valid], gt[valid]).rmse < 0.04
@@ -119,6 +141,52 @@ def test_k2_matches_plain(cuda, case):
         assert (k[2] == 257).all() and (k[1] == hamming.BIG).all()
 
 
+@pytest.mark.parametrize("case", ["batched", "split_ties", "one_query_batched", "small_db"])
+def test_k2_batched_split_matches_plain(cuda, case):
+    """A batch of databases, ties either side of a split boundary, N = 1
+    and a database shorter than one 128-row tile: equal to the plain
+    version in d1, d2 and idx."""
+    from monocular_slam_tpu_torch.ops import hamming
+
+    if case == "batched":
+        a = _pm1(cuda, 1000, 20)
+        b = torch.stack([_pm1(cuda, 1000, 21 + w) for w in range(5)])
+        b[2, 500:700] = a[:200]
+        bv = torch.rand(5, 1000, device=cuda) > 0.1
+        bv[4] = False
+    elif case == "split_ties":
+        a = _pm1(cuda, 64, 30)
+        b = _pm1(cuda, 256, 31)
+        b[127] = a[0]
+        b[128] = a[0]
+        b[120:127] = a[1:8]
+        b[129:136] = a[1:8]
+        bv = torch.ones(256, dtype=torch.bool, device=cuda)
+        assert hamming.splits(64, 256, 1, torch.cuda.get_device_properties(cuda).multi_processor_count) == 2
+    elif case == "one_query_batched":
+        a = _pm1(cuda, 1, 40)
+        b = torch.stack([_pm1(cuda, 3000, 41), _pm1(cuda, 3000, 42)])
+        b[1, 2999] = a[0]
+        bv = torch.rand(2, 3000, device=cuda) > 0.3
+        bv[1, 2999] = True
+    else:
+        a = _pm1(cuda, 70, 50)
+        b = _pm1(cuda, 37, 51)
+        b[36] = a[3]
+        bv = torch.rand(37, device=cuda) > 0.2
+        bv[36] = True
+    before = hamming.LAUNCHES
+    k = hamming.hamming_top2(a, b.contiguous(), bv)
+    torch.cuda.synchronize()
+    assert hamming.LAUNCHES == before + 1
+    p = hamming.hamming_top2_plain(a, b, bv)
+    for x, y in zip(k, p):
+        assert x.dtype == torch.int32 and x.shape == y.shape and torch.equal(x, y)
+    if case == "split_ties":
+        assert int(k[2][0]) == 127 and int(k[0][0]) == int(k[1][0]) == 0
+        assert torch.equal(k[2][1:8], torch.arange(120, 127, dtype=torch.int32, device=cuda))
+
+
 def test_k2_rejects_bad_input(cuda):
     from monocular_slam_tpu_torch.ops import hamming
 
@@ -153,6 +221,30 @@ def test_k2_match_route(cuda):
     big = _pm1(cuda, matching.PALLAS_MIN_DB, 13)
     matching.match(a, big, av, torch.ones(big.shape[0], dtype=torch.bool, device=cuda))
     assert hamming.LAUNCHES == before + 4
+
+
+def test_window_route_equals_dense_on_session_state(cuda):
+    """The tracker's back-traverse window on a real session state: K2 (two
+    launches) and the dense route give the same `Matches` on every row."""
+    from monocular_slam_tpu_torch.datasets import render
+    from monocular_slam_tpu_torch.ops import hamming
+    from monocular_slam_tpu_torch.slam import tracker
+    from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
+    from monocular_slam_tpu_torch.slam.session import SlamSession
+
+    imgs, _, k = render.render_sequence(seed=3, n_frames=9, wh=(320, 240), device=cuda)
+    cfg = SlamConfig(max_frames=16, max_points=4000, image_wh=(320, 240),
+                     frontend=FrontendConfig(n_features=600))
+    sess = SlamSession(cfg, seed=0, device=cuda)
+    for i in range(9):
+        sess.add_frame(imgs[i], k, i / 30.0)
+    before = hamming.LAUNCHES
+    _, _, mk = tracker._window_matches(sess.state, 8, cfg, use_kernel=True)
+    assert hamming.LAUNCHES == before + 2
+    _, _, md = tracker._window_matches(sess.state, 8, cfg, use_kernel=False)
+    for f in ("idx", "dist", "ok", "n_matches"):
+        assert torch.equal(getattr(mk, f), getattr(md, f)), f
+    assert int(mk.n_matches.max()) > 50
 
 
 def test_loop_closer_session_on_cuda(cuda):

@@ -119,3 +119,47 @@ def test_corner_maps_rejects_non_cpu_non_cuda():
     with pytest.raises(ValueError):
         tfs.corner_maps(torch.zeros(8, 8, device="meta"))
 
+
+
+def _level_test_image(seed, h=120, w=160):
+    """Noise plus blocks and lines at several sizes, so every level of its
+    8-level pyramid has FAST responses."""
+    rng = np.random.RandomState(seed)
+    img = 40.0 * rng.rand(h, w)
+    for _ in range(12):
+        y, x = rng.randint(0, h - 24), rng.randint(0, w - 24)
+        s = rng.randint(6, 24)
+        img[y:y + s, x:x + s] += rng.uniform(80.0, 160.0)
+    return img.astype(np.float32)
+
+
+def test_corner_maps_levels_plain_matches_pallas():
+    """All 8 levels at once (the CPU route of K1's one-launch form) against
+    the reference's Pallas kernel, interpreted, level by level: nms maps
+    bit-equal everywhere, raw maps bit-equal >= 3 px from each level's
+    edge."""
+    from monocular_slam_tpu_torch.ops import pyramid as tpyr
+
+    levels = tpyr.build_pyramid(t32(_level_test_image(21)))
+    assert len(levels) == 8
+    maps = tfs.corner_maps_levels(levels, 20.0)
+    assert len(maps) == 8
+    for lvl, (img, (nms_t, raw_t)) in enumerate(zip(levels, maps)):
+        assert nms_t.shape == raw_t.shape == img.shape
+        nms_p, raw_p = jfs.corner_maps(jnp32(np32(img)), 20.0, interpret=True)
+        np.testing.assert_array_equal(np32(nms_t), np32(nms_p), err_msg=f"level {lvl}")
+        np.testing.assert_array_equal(np32(raw_t)[3:-3, 3:-3], np32(raw_p)[3:-3, 3:-3],
+                                      err_msg=f"level {lvl}")
+        assert (np32(nms_t) > 0).sum() > 0, f"no corners on level {lvl}"
+        one_nms, one_raw = tfs.corner_maps(img, 20.0)
+        assert torch.equal(one_nms, nms_t) and torch.equal(one_raw, raw_t)
+
+
+def test_corner_maps_levels_rejects_bad_tables():
+    img = torch.zeros(16, 16)
+    with pytest.raises(ValueError):
+        tfs.corner_maps_levels([img] * (tfs.MAX_LEVELS + 1))
+    with pytest.raises(ValueError):
+        tfs.corner_maps_levels([])
+    with pytest.raises(ValueError):
+        tfs.corner_maps_levels([torch.zeros(8, 8, device="meta")])

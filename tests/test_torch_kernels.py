@@ -195,3 +195,135 @@ def test_vocabulary_from_numpy_and_save_roundtrip(vocabs, tmp_path):
     else:
         with pytest.raises(RuntimeError):
             tvoc.load_default()  # the default device is the card
+
+
+# --- K2's batch, split and merge ----------------------------------------------------
+
+
+def _batched_case(seed, B=3, N=150, M=300):
+    """B databases; in database 1, query rows 0-19 have exact copies at
+    database rows 127 and 128 (either side of a 128-row tile boundary)."""
+    rng = np.random.RandomState(seed)
+    a = _pm1(rng, N)
+    b = np.stack([_pm1(rng, M) for _ in range(B)])
+    b[1, 127] = a[0]
+    b[1, 128] = a[0]
+    b[1, 100:120] = a[1:21]
+    b[1, 200:220] = a[1:21]
+    bv = rng.rand(B, M) > 0.15
+    bv[1, [127, 128]] = True
+    bv[2] = False
+    return a, b, bv
+
+
+def test_hamming_top2_plain_batched_matches_pallas():
+    a, b, bv = _batched_case(7)
+    td1, td2, tidx = tham.hamming_top2(torch.as_tensor(a), torch.as_tensor(b), torch.as_tensor(bv))
+    assert td1.shape == (3, 150)
+    for w in range(3):
+        jd1, jd2, jidx = jham.hamming_top2(jnp.asarray(a), jnp.asarray(b[w]), jnp.asarray(bv[w]),
+                                           interpret=True)
+        for t, j in ((td1[w], jd1), (td2[w], jd2), (tidx[w], jidx)):
+            np.testing.assert_array_equal(_np(t), np.asarray(j))
+    assert _np(tidx)[1, 0] == 127 and _np(td2)[1, 0] == _np(td1)[1, 0] == 0
+    assert (_np(td1)[2] == tham.BIG).all() and (_np(tidx)[2] == 0).all()
+
+
+# csrc/hamming_top2.cu's key arithmetic, in numpy
+_IDX_BITS = 22
+_BASE_VALID = 256 << (_IDX_BITS - 1)
+_BASE_INVALID = 0xC0000000
+_KEY_NONE = 0xFFFFFFFF
+
+
+def _keys(a, b, bv):
+    """(N, M) uint32 keys as the kernel's epilogue forms them: base - dot << 21."""
+    dot = a.astype(np.int64) @ b.astype(np.int64).T
+    base = np.where(bv, _BASE_VALID + np.arange(b.shape[0]), _BASE_INVALID).astype(np.int64)
+    return (base[None, :] - (dot << (_IDX_BITS - 1))) % 2**32
+
+
+def _merge(k1, k2, c1, c2):
+    return np.minimum(k1, c1), np.minimum(np.minimum(k2, c2), np.maximum(k1, c1))
+
+
+def _split_top2(a, b, bv, S, rng):
+    """The kernel's split and merge pass: the database cut into S runs of
+    whole 128-row tiles, each run's columns folded into a running top-2 in a
+    random order by the insert rule, the S partials merged in a random
+    order, then decoded."""
+    N, M = a.shape[0], b.shape[0]
+    keys = _keys(a, b, bv)
+    n_tiles = -(-M // tham.DB_TILE)
+    parts = []
+    for s in range(S):
+        lo = n_tiles * s // S * tham.DB_TILE
+        hi = min(n_tiles * (s + 1) // S * tham.DB_TILE, M)
+        k1 = np.full(N, _KEY_NONE, np.int64)
+        k2 = k1.copy()
+        for j in rng.permutation(np.arange(lo, hi)):
+            k1, k2 = _merge(k1, k2, keys[:, j], np.full(N, _KEY_NONE, np.int64))
+        parts.append((k1, k2))
+    k1 = np.full(N, _KEY_NONE, np.int64)
+    k2 = k1.copy()
+    for s in rng.permutation(S):
+        k1, k2 = _merge(k1, k2, *parts[s])
+    v1, v2 = k1 < 2**31, k2 < 2**31
+    d1 = np.where(v1, k1 >> _IDX_BITS, tham.BIG)
+    idx = np.where(v1, k1 & ((1 << _IDX_BITS) - 1), 0)
+    d2 = np.where(v2, k2 >> _IDX_BITS, tham.BIG)
+    return d1, d2, idx
+
+
+@pytest.mark.parametrize("S", [1, 2, 3, 5])
+def test_split_merge_equals_whole(S):
+    """Keys, per-split top-2 and the merge rule give the whole database's
+    (d1, d2, idx) exactly: ties either side of a split boundary, a split
+    whose rows are all invalid, a ragged last tile, an all-invalid
+    database."""
+    rng = np.random.RandomState(30 + S)
+    a = _pm1(rng, 40)
+    M = 5 * tham.DB_TILE + 37
+    b = _pm1(rng, M)
+    b[127] = b[128] = a[0]  # tile boundary 128 (a split boundary for S = 5)
+    b[255] = b[256 + 10] = a[1]
+    bv = rng.rand(M) > 0.1
+    bv[[127, 128, 255, 266]] = True
+    bv[384:512] = False  # a whole tile invalid
+    for valid in (bv, np.zeros(M, bool)):
+        got = _split_top2(a, b, valid, S, rng)
+        want = tham.hamming_top2_plain(torch.as_tensor(a), torch.as_tensor(b), torch.as_tensor(valid))
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, _np(w))
+    assert got[0][0] == tham.BIG  # the all-invalid pass
+
+
+def test_split_count():
+    """Grid sizing: at most one wave of 3 blocks per SM of a 132-SM card,
+    whole tiles per split, never more splits than tiles."""
+    assert tham.splits(1000, 1000, 1, 132) == 8  # every tile its own split
+    assert tham.splits(1000, 1000, 5, 132) == 4  # 320 blocks
+    assert tham.splits(5000, 1000, 1, 132) == 5  # 395 blocks
+    assert tham.splits(2000, 65536, 1, 132) == 12  # 384 blocks
+    assert tham.splits(1, 0, 1, 132) == 1
+    assert tham.splits(64, 100, 1, 132) == 1
+
+
+@pytest.mark.parametrize("cross_check", [True, False])
+def test_match_kernel_batched_equals_dense(cross_check):
+    """The batched kernel route (its plain version here) returns the dense
+    route's whole `Matches`: idx, dist, ok and n_matches on every row,
+    including rows with ~a_valid and a database with no valid row."""
+    rng = np.random.RandomState(8)
+    a = _pm1(rng, 90)
+    b = np.stack([np.concatenate([a[rng.permutation(90)[:60]], _pm1(rng, 20)]) for _ in range(4)])
+    b = np.where(rng.rand(*b.shape) < 0.05, -b, b).astype(np.int8)
+    av = rng.rand(90) > 0.2
+    bv = rng.rand(4, 80) > 0.1
+    bv[3] = False
+    T = [torch.as_tensor(x) for x in (a, b, av, bv)]
+    mk = tmatch.match(*T, ratio=0.8, max_dist=80, cross_check=cross_check, use_kernel=True)
+    md = tmatch.match(*T, ratio=0.8, max_dist=80, cross_check=cross_check, use_kernel=False)
+    for f in ("idx", "dist", "ok", "n_matches"):
+        np.testing.assert_array_equal(_np(getattr(mk, f)), _np(getattr(md, f)), err_msg=f)
+    assert _np(mk.n_matches)[:3].min() > 20 and _np(mk.n_matches)[3] == 0

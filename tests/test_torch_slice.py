@@ -196,6 +196,24 @@ def test_track_step(track_step):
     np.testing.assert_array_equal(got["points"][old], ref["points"][old])
 
 
+@pytest.mark.parametrize("use_kernel", [True, False])
+def test_window_matches_equal_reference(track_step, use_kernel):
+    """The tracker's back-traverse window on the reference's state, by the
+    K2 route (its plain version on the CPU: forward pass batched over the
+    window, cross-check as one query set of every window row) and by the
+    dense route, against the reference's vmapped dense match: the whole
+    `Matches`, every row."""
+    js = jstate.SlamState(**{n: jnp.asarray(v) for n, v in track_step["pre"].items()})
+    jsafe, jok, mj = jtrack._window_matches(js, SNAP, track_step["jcfg"])
+    tsafe, tok, mt = ttrack._window_matches(tstate.state_from_numpy(track_step["pre"]), SNAP,
+                                            track_step["tcfg"], use_kernel=use_kernel)
+    np.testing.assert_array_equal(np32(tsafe), np.asarray(jsafe))
+    np.testing.assert_array_equal(np32(tok), np.asarray(jok))
+    for f in ("idx", "dist", "ok", "n_matches"):
+        np.testing.assert_array_equal(np32(getattr(mt, f)), np.asarray(getattr(mj, f)), err_msg=f)
+    assert np32(mt.n_matches).min() > 40
+
+
 def test_mapping_block_functions(track_step):
     """frame_overlap, fuse, cull_points and local_bundle_adjust on the
     reference's post-track state."""
