@@ -2,6 +2,13 @@
 
     python3 chip_profile.py          # the loop course, split by stage
     python3 chip_profile.py window   # the tracker's window: dense vs K2
+    python3 chip_profile.py long [traj.npz]   # benchmarks/long_run.py's 1000 frames, by stage
+
+`long`: `chip_smoke.run_long` over the full 1000 frames of the long-run
+configuration, with every stage wrapped as below (the CG pose graph and the
+CG global BA included). Prints the stage rows, then the run's summary, and
+writes the trajectory (poses, valid, keyframes, closures) to `traj.npz`
+when a path is given.
 
 `window`: the 60-frame session of `chip_smoke.py` four times in one
 process, the tracker's back-traverse window on the dense route, on K2, on
@@ -34,8 +41,10 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
+LONG_RUN_FRAMES = 1000  # benchmarks/long_run.py's default
 
 def _sync():
     torch.cuda.synchronize()
@@ -69,6 +78,61 @@ class StageTimer:
         for owner, attr, orig in reversed(self._undo):
             setattr(owner, attr, orig)
         self._undo.clear()
+
+
+def stage_timer() -> StageTimer:
+    """Every stage of the loop-closing session wrapped."""
+    from monocular_slam_tpu_torch.geometry import alignment
+    from monocular_slam_tpu_torch.ops import features, hamming
+    from monocular_slam_tpu_torch.optim import cg_ba, pose_graph
+    from monocular_slam_tpu_torch.slam import keyframes, local_ba, loop_closer, mapping, tracker
+
+    t = StageTimer()
+    t.wrap(features, "extract", "extract (K1 inside)")
+    t.wrap(tracker, "track", "tracker.track")
+    t.wrap(tracker, "bootstrap", "tracker.bootstrap")
+    t.wrap(local_ba, "local_bundle_adjust", "local BA")
+    t.wrap(mapping, "fuse", "mapping.fuse")
+    t.wrap(mapping, "cull_points", "mapping.cull_points")
+    t.wrap(mapping, "frame_overlap", "mapping.frame_overlap")
+    t.wrap(loop_closer, "detect_step", "loop_closer.detect_step")
+    t.wrap(hamming, "match_kernel", "K2 match (window, compute_sim3, relocalize)")
+    t.wrap(alignment, "ransac_sim3_reproj", "Sim3 RANSAC + polish")
+    t.wrap(loop_closer.LoopCloser, "_correct_impl", "pose graph + propagation")
+    t.wrap(pose_graph, "optimize_cg", "CG pose graph (inside pose graph + propagation)")
+    t.wrap(loop_closer.LoopCloser, "_gba_impl", "global BA")
+    t.wrap(cg_ba, "bundle_adjust_cg", "CG global BA (inside global BA)")
+    t.wrap(keyframes, "cull_frames_device", "FrameCulling")
+    t.wrap(tracker, "relocalize", "tracker.relocalize")
+    return t
+
+
+def print_stages(t: StageTimer, n: int, wall_ms: float) -> None:
+    rows = sorted(((name, t.calls[name], ms) for name, ms in t.ms.items()), key=lambda r: -r[2])
+    for name, calls, ms in rows:
+        print(json.dumps({"stage": name, "calls": calls, "ms_total": ms, "ms_per_call": ms / calls,
+                          "ms_per_frame": ms / n, "share": ms / wall_ms}), flush=True)
+
+
+def long_run(smi: str, traj_path: str | None) -> int:
+    import chip_smoke as cs
+
+    t = stage_timer()
+    try:
+        _sync()
+        t0 = time.perf_counter()
+        out, sess = cs.run_long(LONG_RUN_FRAMES)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        t.restore()
+    print_stages(t, out["frames"], wall_ms)
+    print(json.dumps({"device": smi, "wrapped_wall_ms": wall_ms, **out}), flush=True)
+    if traj_path:
+        poses, valid, _ = sess.trajectory()
+        np.savez_compressed(traj_path, poses=poses, valid=valid,
+                            keyframes=np.asarray(sess._keyframes),
+                            closures=np.asarray(sess.loop_closer.closures).reshape(-1, 2))
+    return 0
 
 
 def first_calls() -> dict:
@@ -133,10 +197,8 @@ def main() -> int:
         print("chip_profile: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     import chip_smoke as cs
-    from monocular_slam_tpu_torch.geometry import alignment
-    from monocular_slam_tpu_torch.ops import fast_score, features, hamming
+    from monocular_slam_tpu_torch.ops import fast_score, hamming
     from monocular_slam_tpu_torch.retrieval import vocabulary
-    from monocular_slam_tpu_torch.slam import keyframes, local_ba, loop_closer, mapping, tracker
     from monocular_slam_tpu_torch.utils.device import apply_precision_policy
 
     apply_precision_policy()
@@ -145,6 +207,8 @@ def main() -> int:
     print(smi, flush=True)
     if sys.argv[1:] == ["window"]:
         return window_ab(smi)
+    if sys.argv[1:2] == ["long"]:
+        return long_run(smi, sys.argv[2] if len(sys.argv) > 2 else None)
     print(json.dumps({"first_and_second_call_ms": first_calls()}), flush=True)
     fast_score.load()
     hamming.load()
@@ -155,21 +219,7 @@ def main() -> int:
     print(json.dumps({"unwrapped": {n: plain[n] for n in ("fps", "closures", "reloc_attempts",
                                                           "ate_m", "timings_s")}}), flush=True)
 
-    t = StageTimer()
-    t.wrap(features, "extract", "extract (K1 inside)")
-    t.wrap(tracker, "track", "tracker.track")
-    t.wrap(tracker, "bootstrap", "tracker.bootstrap")
-    t.wrap(local_ba, "local_bundle_adjust", "local BA")
-    t.wrap(mapping, "fuse", "mapping.fuse")
-    t.wrap(mapping, "cull_points", "mapping.cull_points")
-    t.wrap(mapping, "frame_overlap", "mapping.frame_overlap")
-    t.wrap(loop_closer, "detect_step", "loop_closer.detect_step")
-    t.wrap(hamming, "match_kernel", "K2 match (window, compute_sim3, relocalize)")
-    t.wrap(alignment, "ransac_sim3_reproj", "Sim3 RANSAC + polish")
-    t.wrap(loop_closer.LoopCloser, "_correct_impl", "pose graph + propagation")
-    t.wrap(loop_closer.LoopCloser, "_gba_impl", "global BA")
-    t.wrap(keyframes, "cull_frames_device", "FrameCulling")
-    t.wrap(tracker, "relocalize", "tracker.relocalize")
+    t = stage_timer()
     try:
         _sync()
         t0 = time.perf_counter()
@@ -178,10 +228,7 @@ def main() -> int:
     finally:
         t.restore()
     n = frames.shape[0]
-    rows = sorted(((name, t.calls[name], ms) for name, ms in t.ms.items()), key=lambda r: -r[2])
-    for name, calls, ms in rows:
-        print(json.dumps({"stage": name, "calls": calls, "ms_total": ms, "ms_per_call": ms / calls,
-                          "ms_per_frame": ms / n, "share": ms / wall_ms}), flush=True)
+    print_stages(t, n, wall_ms)
 
     sim3_ms = []
     if out["closures"]:

@@ -47,11 +47,29 @@ benchmark's full width and checks them:
                 closure with i - j >= 40, at least one relocalization attempt
                 that launched K2, tracked >= real frames - 6, ATE <= 10 cm on
                 the real frames, then a direct `tracker.relocalize` of the
-                last frame against its predecessor.
+                last frame against its predecessor;
+  9. scale    — the matrix-free solvers at benchmarks/kitti_scale.py's shapes
+                (numpy draws): a 10,000-keyframe drifted Sim3 graph with 100
+                loop edges through `pose_graph.optimize_cg` and the 1000-
+                camera, 100,000-point, 1.5M-edge problem through
+                `cg_ba.bundle_adjust_cg` (10 LM iterations each, the second
+                of two calls timed): finite, chi2 down at least 10x, the BA
+                under twice its statistical floor 2 sigma^2 E; seconds per LM
+                iteration and peak device memory. Then both routes of global
+                BA and of `correct` on the loop phase's final state: the
+                CG route's poses (99% of its points) must agree with the
+                dense route's to within 10% (25%) of the dense correction;
+ 10. long     — benchmarks/long_run.py's configuration (`run_long`) cut to
+                LONG_FRAMES frames: fails on a non-finite pose, below 95%
+                tracked, below 2 closures, if `optimize_cg` or
+                `bundle_adjust_cg` was never called, if no feature slot was
+                evicted, unless K1 launched once per frame and K2 at least
+                twice in every track call; reports ATE, fps, prewarm
+                seconds, each Sim3's seconds and the closure stages.
 
 Every phase raises on failure. Kernel launch counts are set to 0 just
-before each path is driven and read just after; the kernels JSON reports
-the session's measured run. The second-to-last line is
+before each path is driven and read just after (in `long`, after the
+prewarm); the kernels JSON reports the session's measured run. The second-to-last line is
 the kernels JSON, the last line `{"ok": true, "device": {...}}`.
 """
 
@@ -88,6 +106,14 @@ LOOP_FRAMES = 112
 BLACKOUT_AFTER = 40
 BLACKOUT = 8
 LOOP_MAX_ATE_M = 0.10
+# benchmarks/kitti_scale.py's shapes; benchmarks/long_run.py's course, cut
+# from 1000 frames to LONG_FRAMES (a closure past 128 keyframes included)
+SCALE_KF = 10_000
+SCALE_LOOPS = 100
+SCALE_BA = (1000, 100_000, 1500)  # cameras, points, observations per camera
+SCALE_ITERS = 10
+CG_VS_DENSE_FRAC = (0.1, 0.25)  # CG vs dense route on the loop state: poses, 99% of points
+LONG_FRAMES = 400
 
 
 def log(msg: str) -> None:
@@ -611,6 +637,405 @@ def phase_loop(dev="cuda") -> dict:
         f"{last} against {last - 1}: ok {ok}, {n} inliers")
     if not ok or n < sess.cfg.track.reloc_min_inliers:
         raise AssertionError(f"loop: direct relocalize failed ({ok}, {n} inliers)")
+    return out, sess
+
+
+def _scale_pose_graph(dev):
+    """benchmarks/kitti_scale.py's pose graph with numpy draws: SCALE_KF Sim3
+    keyframes on four revolutions of a 50 m circle, drifted by accumulated
+    0.01-sigma tangent noise, odometry edges plus loop edges i -> i - n/4
+    (one revolution) measured from the truth."""
+    from monocular_slam_tpu_torch.geometry import sim3, so3
+    from monocular_slam_tpu_torch.optim import pose_graph
+
+    n = SCALE_KF
+    ang = np.arange(n) * (2 * np.pi / (n / 4))
+    t = np.stack([np.sin(ang) * 50, np.zeros(n), np.cos(ang) * 50], -1)
+    rot = np.stack([np.zeros(n), ang, np.zeros(n)], -1)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    verts = sim3.pack(so3.exp(f32(rot)), f32(t), torch.ones(n, device=dev))
+    step = 0.01 * np.random.RandomState(0).randn(n, 7)
+    step[0] = 0.0
+    verts_n = sim3.compose(sim3.exp(f32(np.cumsum(step, 0))), verts)
+    li = np.arange(n // 4, n, max(1, n // SCALE_LOOPS))
+    lj = li - n // 4
+    meas = sim3.compose(verts[li], sim3.inverse(verts[lj]))
+    return pose_graph.sequential_graph(verts_n, torch.ones(n, dtype=torch.bool, device=dev),
+                                       li, lj, meas)
+
+
+def _scale_ba_problem(dev):
+    """benchmarks/kitti_scale.py's global BA with numpy draws: SCALE_BA[0]
+    cameras on an 80 m circle looking at SCALE_BA[1] points in a 30 m ball
+    (KITTI cam0 intrinsics), SCALE_BA[2] observations per camera of random
+    points with 0.5 px noise, poses perturbed by 0.005-sigma twists, points
+    by 0.1 m; camera 0 fixed. Returns (BAProblem, statistical chi2 floor
+    2 sigma^2 E)."""
+    from monocular_slam_tpu_torch.geometry import se3
+    from monocular_slam_tpu_torch.optim import ba
+
+    F, P, obs = SCALE_BA
+    rng = np.random.RandomState(1)
+    d = rng.randn(P, 3)
+    X = 30.0 * d / np.linalg.norm(d, axis=1, keepdims=True) * rng.uniform(size=(P, 1)) ** (1 / 3)
+    k = np.array([718.856, 718.856, 607.19, 185.22])
+    ang = np.arange(F) * (2 * np.pi / F)
+    c = np.stack([80.0 * np.sin(ang), np.zeros(F), -80.0 * np.cos(ang)], -1)
+    z = -c / np.linalg.norm(c, axis=1, keepdims=True)
+    x = np.cross(np.array([0.0, 1.0, 0.0]), z)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    R = np.stack([x, np.cross(z, x), z], 1)  # rows: the camera axes in the world
+    poses = np.concatenate([R, -(R @ c[:, :, None])], 2)
+    E = F * obs
+    cam_idx = np.repeat(np.arange(F), obs)
+    pt_idx = rng.randint(0, P, E)
+    Xc = np.einsum("eij,ej->ei", R[cam_idx], X[pt_idx]) + poses[cam_idx, :, 3]
+    uv = k[:2] * Xc[:, :2] / Xc[:, 2:] + k[2:] + 0.5 * rng.randn(E, 2)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    fixed = np.zeros(F, bool)
+    fixed[0] = True
+    prob = ba.BAProblem(
+        poses=se3.compose(se3.exp(f32(0.005 * rng.randn(F, 6))), f32(poses)),
+        points=f32(X + 0.1 * rng.randn(P, 3)), k=f32(np.tile(k, (F, 1))),
+        cam_idx=torch.as_tensor(cam_idx, device=dev), pt_idx=torch.as_tensor(pt_idx, device=dev),
+        uv=f32(uv), info=torch.ones(E, device=dev), valid=torch.ones(E, dtype=torch.bool, device=dev),
+        fixed=torch.as_tensor(fixed, device=dev),
+    )
+    return prob, 2.0 * 0.5**2 * E
+
+
+def _timed_solve(fn):
+    """(result, seconds, peak device memory in MB) of one synchronized call."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**20
+
+
+def device_ops(fn) -> int:
+    """Operations (kernels, copies, memsets) one call of fn puts on the card,
+    counted by `torch.profiler`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(e.count for e in prof.key_averages() if e.device_type == cuda)
+
+
+def _state_diff(a, b, ref) -> dict:
+    """Differences between two states over the valid frames and points of
+    `ref` (m): the largest pose entry, and the largest, 99th-percentile and
+    median point distance."""
+    v, pv = ref.pose_valid, ref.point_valid
+    d = torch.linalg.norm(a.points - b.points, dim=-1)[pv]
+    q = torch.quantile(d, torch.tensor([0.5, 0.99], device=d.device)).tolist()
+    return {"max_pose_diff_m": (a.poses - b.poses)[v].abs().max().item(),
+            "max_point_diff_m": d.max().item(), "p99_point_diff_m": q[1],
+            "median_point_diff_m": q[0]}
+
+
+def _cg_vs_dense(sess, closure) -> dict:
+    """Both routes of global BA and of the pose-graph correction on the loop
+    phase's final state (F = 128, where both run): `_gba_impl` with the dense
+    and the CG solver after a 1 cm perturbation of the keyframes, and
+    `correct` of the first closure under a perturbed Sim3 with keyframe
+    buckets of 128 (dense) and 256 (CG). Per pair: the routes' difference,
+    how far the dense route moved the state, each solve's chi2 (initial,
+    final) and seconds, and each route's device operations per call."""
+    import dataclasses
+
+    from monocular_slam_tpu_torch.geometry import sim3
+    from monocular_slam_tpu_torch.optim import ba as ba_mod
+    from monocular_slam_tpu_torch.optim import cg_ba, pose_graph
+    from monocular_slam_tpu_torch.slam.loop_closer import LoopCloser
+
+    lc, state = sess.loop_closer, sess.state
+    dev = state.poses.device
+    Fc = state.poses.shape[0]
+    valid = state.pose_valid.cpu().numpy()
+    kfs = [f for f in sess._keyframes if valid[f]]
+    pad = torch.zeros(Fc, dtype=torch.long, device=dev)
+    pad[: len(kfs)] = torch.as_tensor(kfs, device=dev)
+    poses = state.poses.clone()
+    g = torch.Generator(device=dev).manual_seed(3)
+    poses[kfs[1:], :, 3] += 0.01 * torch.randn((len(kfs) - 1, 3), generator=g, device=dev)
+    st = state._replace(poses=poses)
+    n = lc.lc.global_ba_iters
+    chi2 = {}
+
+    def keep(name, fn):
+        def solve(*a, **kw):
+            r = fn(*a, **kw)
+            chi2[name] = [float(r.chi2_initial), float(r.chi2_history[-1])]
+            return r
+        return solve
+
+    def row(a, b, base, t_a, t_b, names):
+        moved = _state_diff(a, base, base)
+        return {"dense_s": t_a, "cg_s": t_b, **_state_diff(a, b, base),
+                "dense_moved_pose_m": moved["max_pose_diff_m"],
+                "dense_moved_p99_point_m": moved["p99_point_diff_m"],
+                "chi2_dense": chi2[names[0]], "chi2_cg": chi2[names[1]]}
+
+    out = {}
+    plain = pose_graph.optimize, pose_graph.optimize_cg
+    pose_graph.optimize = keep("pg_dense", plain[0])
+    pose_graph.optimize_cg = keep("pg_cg", plain[1])
+    try:
+        with torch.inference_mode():
+            dense, t_d, _ = _timed_solve(lambda: lc._gba_impl(
+                st, pad, len(kfs), keep("ba_dense", lambda pr: ba_mod.bundle_adjust(pr, n_iters=n))))
+            cg, t_c, _ = _timed_solve(lambda: lc._gba_impl(
+                st, pad, len(kfs),
+                keep("ba_cg", lambda pr: cg_ba.bundle_adjust_cg(pr, n_iters=n, max_cg_iters=50))))
+            out["global_ba"] = {"keyframes": len(kfs),
+                                **row(dense, cg, st, t_d, t_c, ("ba_dense", "ba_cg"))}
+            i, j = closure
+            S = sim3.exp(torch.tensor([0.02, -0.01, 0.03, 0.05, 0.03, -0.04, 0.02], device=dev))
+            res, closers = {}, {}
+            for bucket, name in ((128, "dense"), (256, "cg")):
+                c = LoopCloser(lc.voc, lc.cfg, dataclasses.replace(lc.lc, kf_bucket=bucket,
+                                                                   run_global_ba=False), device=dev)
+                c.loop_edges = list(lc.loop_edges)
+                closers[name] = c
+                res[bucket] = _timed_solve(lambda c=c: c.correct(state, i, j, S,
+                                                                   keyframes=list(sess._keyframes)))
+    finally:
+        pose_graph.optimize, pose_graph.optimize_cg = plain
+    (sd, ok_d), t_d, _ = res[128]
+    (sc, ok_c), t_c, _ = res[256]
+    if not (ok_d and ok_c and "pg_dense" in chi2 and "pg_cg" in chi2):
+        raise AssertionError(f"cg vs dense: correct applied {ok_d}/{ok_c}, routes {sorted(chi2)}")
+    out["correct"] = {"closure": [i, j], **row(sd, sc, state, t_d, t_c, ("pg_dense", "pg_cg"))}
+    # device operations per closure on each route: the solvers' trip counts
+    # are fixed, so these are the long run's counts per closure too
+    with torch.inference_mode():
+        out["device_ops_per_call"] = {
+            "global_ba_dense": device_ops(lambda: lc._gba_impl(
+                st, pad, len(kfs), lambda pr: ba_mod.bundle_adjust(pr, n_iters=n))),
+            "global_ba_cg": device_ops(lambda: lc._gba_impl(
+                st, pad, len(kfs), lambda pr: cg_ba.bundle_adjust_cg(pr, n_iters=n, max_cg_iters=50))),
+            **{f"correct_{name}": device_ops(lambda c=c: c.correct(state, i, j, S,
+                                                                  keyframes=list(sess._keyframes)))
+               for name, c in closers.items()},
+        }
+    return out
+
+
+def phase_scale(loop_sess, loop_out, dev="cuda") -> dict:
+    """The matrix-free solvers at benchmarks/kitti_scale.py's scale, then CG
+    against dense on the loop phase's final state."""
+    from monocular_slam_tpu_torch.optim import cg_ba, pose_graph
+
+    dev = torch.device(dev)
+    out = {}
+    g = _scale_pose_graph(dev)
+    first = _timed_solve(lambda: pose_graph.optimize_cg(g, n_iters=SCALE_ITERS))[1]
+    res, dt, mem = _timed_solve(lambda: pose_graph.optimize_cg(g, n_iters=SCALE_ITERS))
+    c0, c1, n_run = float(res.chi2_initial), float(res.chi2_history[-1]), int(res.n_iters_run)
+    out["pose_graph"] = {"keyframes": SCALE_KF, "edges": int(g.valid.sum()), "lm_iters_run": n_run,
+                         "s_per_lm_iter": dt / max(n_run, 1), "first_call_s": first,
+                         "chi2_initial": c0, "chi2_final": c1, "peak_mem_mb": mem}
+    log("[scale] pose graph " + json.dumps(out["pose_graph"]))
+    if not (torch.isfinite(res.vertices).all() and c1 * 10 <= c0):
+        raise AssertionError(f"scale: CG pose graph chi2 {c0} -> {c1}")
+
+    prob, floor = _scale_ba_problem(dev)
+    first = _timed_solve(lambda: cg_ba.bundle_adjust_cg(prob, n_iters=SCALE_ITERS, max_cg_iters=50))[1]
+    res, dt, mem = _timed_solve(lambda: cg_ba.bundle_adjust_cg(prob, n_iters=SCALE_ITERS,
+                                                               max_cg_iters=50))
+    hist = res.chi2_history.tolist()
+    c0, n_run = float(res.chi2_initial), int(res.n_iters_run)
+    out["global_ba"] = {"frames": SCALE_BA[0], "points": SCALE_BA[1],
+                        "edges": int(prob.cam_idx.shape[0]), "lm_iters_run": n_run,
+                        "s_per_lm_iter": dt / max(n_run, 1), "first_call_s": first,
+                        "chi2_initial": c0, "chi2_history": hist, "chi2_floor": floor,
+                        "peak_mem_mb": mem}
+    log("[scale] global BA " + json.dumps(out["global_ba"]))
+    finite = bool(torch.isfinite(res.poses).all() and torch.isfinite(res.points).all())
+    if not (finite and hist[-1] * 10 <= c0 and hist[-1] <= 2.0 * floor):
+        raise AssertionError(f"scale: CG BA finite {finite}, chi2 {c0} -> {hist[-1]} "
+                             f"(floor {floor})")
+
+    out["cg_vs_dense"] = _cg_vs_dense(loop_sess, loop_out["closures"][0])
+    log("[scale] CG vs dense on the loop state " + json.dumps(out["cg_vs_dense"]))
+    for name in ("global_ba", "correct"):
+        row = out["cg_vs_dense"][name]
+        # the CG route must make the dense route's correction to within a
+        # fraction of its size (PCG stops at 50 or 100 float32 steps); a few
+        # weakly observed points move along their depth with the solver's
+        # last digits, so points are held at their 99th percentile
+        f_pose, f_point = CG_VS_DENSE_FRAC
+        if not (row["max_pose_diff_m"] <= f_pose * row["dense_moved_pose_m"]
+                and row["p99_point_diff_m"] <= f_point * row["dense_moved_p99_point_m"]):
+            raise AssertionError(f"scale: {name}: the CG route's correction differs from the "
+                                 f"dense route's by more than {CG_VS_DENSE_FRAC} of it: {row}")
+    return out
+
+
+def run_long(n: int, dev="cuda") -> tuple[dict, object]:
+    """benchmarks/long_run.py's configuration on the card: n frames of the
+    seed-19 orbit at 0.05 rad/frame, 640x480, rendered into one uint8 buffer
+    on the card and fed through `add_frame_from_buffer` after
+    `prewarm(image=True)`; 1000 continuous-steered features, 256 slots,
+    max_points 30000, max_frames n + 32, the bundled vocabulary, min_gap
+    and cooldown 60. K1 and K2 are counted from 0 after the prewarm; the
+    solver routes of the loop closer and each Sim3 are recorded."""
+    from monocular_slam_tpu_torch.datasets import render
+    from monocular_slam_tpu_torch.eval import ate as ate_mod
+    from monocular_slam_tpu_torch.ops import fast_score, hamming
+    from monocular_slam_tpu_torch.optim import cg_ba, pose_graph
+    from monocular_slam_tpu_torch.retrieval import vocabulary
+    from monocular_slam_tpu_torch.slam import tracker
+    from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
+    from monocular_slam_tpu_torch.slam.loop_closer import LoopCloser, LoopClosureConfig
+    from monocular_slam_tpu_torch.slam.session import SlamSession
+
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    imgs, poses_gt, k = render.render_sequence(seed=19, n_frames=n, wh=WH, ang_step=0.05, device=dev)
+    buf = imgs.to(torch.uint8)
+    del imgs
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    cfg = SlamConfig(max_frames=n + 32, max_slots=256, max_points=30000, image_wh=WH,
+                     frontend=FrontendConfig(n_features=1000, steer_mode="continuous"))
+    lc = LoopCloser(vocabulary.load_default(dev), cfg, LoopClosureConfig(min_gap=60, cooldown=60),
+                    device=dev)
+    sess = SlamSession(cfg, seed=0, run_ba=True, loop_closer=lc, device=dev)
+    prewarm_s = sess.prewarm(image=True)
+
+    routes = {"optimize": [], "optimize_cg": [], "bundle_adjust_cg": []}
+    track_k2, sim3_s, closes = [], [], []
+    undo = []
+
+    def wrap(owner, attr, record):
+        orig = getattr(owner, attr)
+
+        def wrapped(*a, **kw):
+            return record(orig, *a, **kw)
+
+        setattr(owner, attr, wrapped)
+        undo.append((owner, attr, orig))
+
+    def solve(name, size):
+        def record(orig, x, *a, **kw):
+            res = orig(x, *a, **kw)
+            routes[name].append({"frame": sess._next - 1, "size": size(x),
+                                 "chi2": [float(res.chi2_initial), float(res.chi2_history[-1])],
+                                 "lm_iters_run": int(res.n_iters_run)})
+            return res
+        return record
+
+    def close(orig, state, i, j, *a, **kw):
+        state, closed = orig(state, i, j, *a, **kw)
+        c = -torch.einsum("fji,fj->fi", state.poses[:, :, :3], state.poses[:, :, 3])[state.pose_valid]
+        closes.append({"i": i, "j": j, "closed": closed,
+                       "max_center_norm": torch.linalg.norm(c, dim=-1).max().item()})
+        return state, closed
+
+    def track(orig, *a, **kw):
+        before = hamming.LAUNCHES
+        res = orig(*a, **kw)
+        track_k2.append(hamming.LAUNCHES - before)
+        return res
+
+    def timed_sim3(orig, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = orig(*a, **kw)
+        torch.cuda.synchronize()
+        sim3_s.append(time.perf_counter() - t)
+        return res
+
+    wrap(pose_graph, "optimize", solve("optimize", lambda g: int(g.vertices.shape[0])))
+    wrap(pose_graph, "optimize_cg", solve("optimize_cg", lambda g: int(g.vertices.shape[0])))
+    wrap(cg_ba, "bundle_adjust_cg", solve("bundle_adjust_cg", lambda p: int(p.valid.sum())))
+    wrap(tracker, "track", track)
+    wrap(lc, "compute_sim3", timed_sim3)
+    wrap(lc, "close", close)
+    fast_score.LAUNCHES = hamming.LAUNCHES = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            if i == 50:
+                torch.cuda.synchronize()
+                t50 = time.perf_counter()
+            sess.add_frame_from_buffer(buf, i, k, i / 30.0)
+        sess.flush()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        for owner, attr, orig in reversed(undo):
+            setattr(owner, attr, orig)
+    k1, k2 = fast_score.LAUNCHES, hamming.LAUNCHES
+    poses, valid, _ = sess.trajectory()
+    # a pose whose camera centre ran off past 1e6 counts as non-finite
+    with np.errstate(all="ignore"):
+        centers = np.abs(ate_mod.camera_centers(poses.astype(np.float64))).max(1)
+        finite = centers < 1e6
+    ok = valid & finite
+    r = ate_mod.ate(poses[ok], poses_gt[ok])
+    # rotation blocks that stopped being rotations (|det R - 1| > 1e-2)
+    det_dev = np.abs(np.linalg.det(np.where(ok[:, None, None], poses, 0.0)[:, :, :3]
+                                   .astype(np.float64)) - 1.0)
+    rigid = ok & (det_dev <= 1e-2)
+    nr = max(lc.timings["n_runs"], 1)
+    out = {
+        "frames": n, "render_s": render_s, "prewarm_s": prewarm_s, "tracked": int(valid.sum()),
+        "nonfinite_poses": int((valid & ~finite).sum()), "ate_m": r.rmse,
+        "max_rotation_det_dev": float(det_dev[ok].max()), "nonrigid_poses": int((ok & ~rigid).sum()),
+        "ate_m_rigid_poses": ate_mod.ate(poses[rigid], poses_gt[rigid]).rmse, "fps": n / (t1 - t0),
+        "fps_50_on": (n - 50) / (t1 - t50) if n > 50 else None, "wall_s": t1 - t0, "closures": lc.closures,
+        "corrected": lc.corrected, "skipped_identity": lc.skipped_identity,
+        "reverted": lc.reverted, "keyframes_promoted": len(sess._keyframes),
+        "keyframes_live": len(sess.keyframes), "frames_evicted": int((sess.state.slot_of[:n] < 0).sum()),
+        "routes": routes, "reloc_attempts": sess.reloc_attempts,
+        "reloc_successes": sess.reloc_successes, "k1_launches": k1, "k2_launches": k2,
+        "track_calls": len(track_k2), "k2_per_track_min": min(track_k2, default=0),
+        "sim3_s": sim3_s, "close_calls": closes, "closure_timings_s": lc.timings,
+        "closure_s_per_run": {s: lc.timings[s] / nr for s in ("sim3", "pose_graph", "global_ba")},
+    }
+    return out, sess
+
+
+def phase_long() -> dict:
+    out, _ = run_long(LONG_FRAMES)
+    log("[long] " + json.dumps(out))
+    n = out["frames"]
+    log(f"[long] {n} frames: tracked {out['tracked']}, ATE {out['ate_m'] * 100:.2f} cm "
+        f"(max |det R - 1| {out['max_rotation_det_dev']:.2g}), "
+        f"{out['fps']:.2f} fps ({out['fps_50_on']:.2f} from frame 50), prewarm "
+        f"{out['prewarm_s']:.2f} s, closures {out['closures']}, first Sim3 "
+        f"{out['sim3_s'][0] if out['sim3_s'] else float('nan'):.3f} s, routes "
+        f"{ {r: len(c) for r, c in out['routes'].items()} }, evicted {out['frames_evicted']}, "
+        f"K1 {out['k1_launches']}, K2 {out['k2_launches']} in {out['track_calls']} track calls")
+    if out["nonfinite_poses"]:
+        raise AssertionError(f"long: {out['nonfinite_poses']} non-finite poses")
+    if out["tracked"] < 0.95 * n:
+        raise AssertionError(f"long: tracked {out['tracked']} < 95% of {n}")
+    if len(out["closures"]) < 2:
+        raise AssertionError(f"long: {len(out['closures'])} closures < 2")
+    if not out["routes"]["optimize_cg"] or not out["routes"]["bundle_adjust_cg"]:
+        raise AssertionError(f"long: a CG route was never taken: {out['routes']}")
+    if out["frames_evicted"] < 1:
+        raise AssertionError("long: no feature slot was evicted")
+    if out["k1_launches"] != n:
+        raise AssertionError(f"long: K1 launched {out['k1_launches']} times for {n} frames")
+    if out["k2_per_track_min"] < 2:
+        raise AssertionError(f"long: a track call launched K2 {out['k2_per_track_min']} times")
     return out
 
 
@@ -621,7 +1046,9 @@ def main() -> int:
     res = phase_session()
     k2 = phase_k2(res["imgs"])
     phase_lc60(res)
-    loop = phase_loop()
+    loop, loop_sess = phase_loop()
+    phase_scale(loop_sess, loop)
+    phase_long()
     k1 = res["k1"]
     win = k2[WINDOW]
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; loop K1 launches "

@@ -96,7 +96,8 @@ def solve_pnp_ransac(
         inl_best = torch.where(use, inl_lo, inl_best)
         n_best = torch.where(use, n_lo, n_best)
 
-    res = pose_ba.refine_pose(T_best, X, uv, k, inl_best.to(X.dtype), n_rounds=2)
+    res = pose_ba.refine_pose(T_best, X, uv, k, inl_best.to(X.dtype), n_rounds=2,
+                              solver="gn")
     # accept the refinement only if it keeps at least as many inliers
     use = res.n_inliers >= inl_best.sum()
     T_fin = torch.where(use, res.T, T_best)

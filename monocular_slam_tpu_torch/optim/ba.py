@@ -12,9 +12,10 @@ in: the edge-list engine here by default, the observation grid of
 
 The edge-list engine scatters the per-edge pose-landmark blocks into a
 dense (F*6, P*3) cross term and forms the reduced camera system with one
-matmul (184 MB per cross-term array at F = 128, P = 20000); the reference
-switches to its matrix-free CG engine past F*P = 4e6, which is not ported.
-Gauss-Newton, dogleg and CG variants are not on the ported path.
+matmul (184 MB per cross-term array at F = 128, P = 20000); past F*P = 4e6
+the loop closer plugs in the matrix-free PCG solve of `optim/cg_ba.py`.
+`bundle_adjust_gn` and `bundle_adjust_dogleg` are g2o's other two
+algorithms on the same engine, selectable through `bundle_adjust_with`.
 """
 
 from __future__ import annotations
@@ -196,3 +197,138 @@ def bundle_adjust(prob, n_iters: int = FULL_BA_ITER, delta: float = THRESH_HUBER
 def global_bundle_adjust(prob: BAProblem, n_iters: int = FULL_BA_ITER) -> BAResult:
     """All-frames, all-points BA on the edge-list engine."""
     return bundle_adjust(prob, n_iters=n_iters)
+
+
+def _hessian_vecprod(prob: BAProblem, lin, xp, xl):
+    """(H x) from the block linearization without forming H:
+    (Hx)_p = Hpp x_p + sum_e W_e x_l(e); (Hx)_l = Hll x_l + sum_e W_e^T x_p(e)."""
+    F, P = lin["Hpp"].shape[0], lin["Hll"].shape[0]
+    cam, pt = prob.cam_idx.long(), prob.pt_idx.long()
+    hp = _small_mv(lin["Hpp"], xp) + segment_sum(_small_mv(lin["W_e"], xl[pt]), cam, F)
+    hl = _small_mv(lin["Hll"], xl) + segment_sum((lin["W_e"] * xp[cam][..., None]).sum(-2), pt, P)
+    return hp, hl
+
+
+def _start(prob, solve_fn, linearize_fn, delta):
+    """Default engines, the first linearization and the vanishing damping
+    floor (1e-12 x max diagonal) of the undamped algorithms."""
+    solve_fn = _schur_solve if solve_fn is None else solve_fn
+    linearize_fn = _linearize_graph if linearize_fn is None else linearize_fn
+    lin = linearize_fn(prob, prob.poses, prob.points, delta)
+    diag0 = torch.cat([torch.diagonal(lin["Hpp"], dim1=-2, dim2=-1).reshape(-1),
+                       torch.diagonal(lin["Hll"], dim1=-2, dim2=-1).reshape(-1)])
+    return solve_fn, linearize_fn, lin, 1e-12 * torch.clamp(diag0.max(), min=1.0)
+
+
+def bundle_adjust_gn(prob: BAProblem, n_iters: int = FULL_BA_ITER,
+                     delta: float = THRESH_HUBER_FULL_BA, solve_fn=None,
+                     linearize_fn=None) -> BAResult:
+    """Gauss-Newton (g2o's `OptimizationAlgorithmGaussNewton`): the undamped
+    step applied unconditionally; a non-finite candidate or a relative chi2
+    change below 1e-9 freezes the run. The damping floor keeps padding
+    landmark blocks factorizable (their rhs is 0, so their update is 0)."""
+    dt, dev = prob.poses.dtype, prob.poses.device
+    solve_fn, linearize_fn, lin, lam_floor = _start(prob, solve_fn, linearize_fn, delta)
+    chi2_init = lin["chi2"]
+    st = lm.LMState(torch.tensor(0.0, dtype=dt, device=dev), torch.tensor(2.0, dtype=dt, device=dev),
+                    lin["chi2"], torch.tensor(0, dtype=torch.int32, device=dev),
+                    torch.tensor(False, device=dev))
+    poses, points = prob.poses, prob.points
+    chi2_h, lam_h, acc_h = [], [], []
+    for _ in range(n_iters):
+        dxp, dxl, _ = solve_fn(prob, lin, lam_floor)
+        poses_new = se3.compose(se3.exp(dxp), poses)
+        points_new = points + dxl
+        lin_new = linearize_fn(prob, poses_new, points_new, delta)
+        ok = torch.isfinite(lin_new["chi2"])
+        chi2_out = torch.where(ok, lin_new["chi2"], lin["chi2"])
+        stall = ~ok | ((lin["chi2"] - chi2_out).abs() < 1e-9 * (lin["chi2"] + 1e-30))
+        accept = ok & ~st.done
+        poses = torch.where(accept, poses_new, poses)
+        points = torch.where(accept, points_new, points)
+        lin = {n: torch.where(accept, lin_new[n], lin[n]) for n in lin}
+        st = st._replace(chi2=lin["chi2"], it=st.it + 1, done=st.done | stall)
+        chi2_h.append(st.chi2)
+        lam_h.append(st.lam)
+        acc_h.append(accept)
+    return BAResult(poses, points, chi2_init, torch.stack(chi2_h),
+                    torch.stack(lam_h), torch.stack(acc_h), st.it)
+
+
+def bundle_adjust_dogleg(prob: BAProblem, n_iters: int = FULL_BA_ITER,
+                         delta: float = THRESH_HUBER_FULL_BA, radius0: float = 1.0,
+                         solve_fn=None, linearize_fn=None) -> BAResult:
+    """Powell's dogleg (g2o's `OptimizationAlgorithmDogleg`): the Cauchy
+    point and the Gauss-Newton step blended inside a trust region of radius
+    Delta, which grows to max(Delta, 3|h|) when the gain ratio exceeds 0.75
+    and halves below 0.25. `lambda_history` records Delta."""
+    dt, dev = prob.poses.dtype, prob.poses.device
+    solve_fn, linearize_fn, lin, lam_floor = _start(prob, solve_fn, linearize_fn, delta)
+    chi2_init = lin["chi2"]
+    st = lm.LMState(torch.tensor(radius0, dtype=dt, device=dev), torch.tensor(2.0, dtype=dt, device=dev),
+                    lin["chi2"], torch.tensor(0, dtype=torch.int32, device=dev),
+                    torch.tensor(False, device=dev))
+    poses, points = prob.poses, prob.points
+
+    def dot(ap, al, bp, bl):
+        return (ap * bp).sum() + (al * bl).sum()
+
+    chi2_h, rad_h, acc_h = [], [], []
+    for _ in range(n_iters):
+        radius = st.lam
+        gp, gl, _ = solve_fn(prob, lin, lam_floor)  # Gauss-Newton step
+        bp, bl = lin["bp"], lin["bl"]
+        # Cauchy point: alpha = |b|^2 / (b^T H b), h_sd = alpha b
+        alpha = dot(bp, bl, bp, bl) / (dot(bp, bl, *_hessian_vecprod(prob, lin, bp, bl)) + 1e-30)
+        sp, sl = alpha * bp, alpha * bl
+        n_gn = torch.sqrt(dot(gp, gl, gp, gl))
+        n_sd = torch.sqrt(dot(sp, sl, sp, sl))
+        # blend: h = h_sd + beta (h_gn - h_sd) with |h| = Delta
+        ap, al = gp - sp, gl - sl
+        a2 = dot(ap, al, ap, al) + 1e-30
+        c = dot(sp, sl, ap, al)
+        gap = radius**2 - n_sd**2
+        disc = torch.sqrt(torch.clamp(c * c + a2 * gap, min=0.0))
+        beta = torch.where(c <= 0, (-c + disc) / a2, gap / (c + disc))
+        use_gn = n_gn <= radius
+        use_sd = ~use_gn & (n_sd >= radius)
+        scale_sd = radius / torch.clamp(n_sd, min=1e-30)
+        dxp = torch.where(use_gn, gp, torch.where(use_sd, scale_sd * sp, sp + beta * ap))
+        dxl = torch.where(use_gn, gl, torch.where(use_sd, scale_sd * sl, sl + beta * al))
+
+        poses_new = se3.compose(se3.exp(dxp), poses)
+        points_new = points + dxl
+        lin_new = linearize_fn(prob, poses_new, points_new, delta)
+        chi2_new = lin_new["chi2"]
+        # gain ratio against the quadratic model
+        pred = dot(dxp, dxl, bp, bl) - 0.5 * dot(dxp, dxl, *_hessian_vecprod(prob, lin, dxp, dxl))
+        rho = (lin["chi2"] - chi2_new) / (pred + 1e-30)
+        step_ok = (chi2_new < lin["chi2"]) & torch.isfinite(chi2_new)
+        h_norm = torch.sqrt(dot(dxp, dxl, dxp, dxl))
+        radius_new = torch.where(rho > 0.75, torch.maximum(radius, 3.0 * h_norm), radius)
+        radius_new = torch.where(rho < 0.25, radius_new * 0.5, radius_new)
+        stall = (step_ok & (lin["chi2"] - chi2_new < 1e-9 * lin["chi2"])) | (radius_new < 1e-12)
+        accept = step_ok & ~st.done
+        poses = torch.where(accept, poses_new, poses)
+        points = torch.where(accept, points_new, points)
+        lin = {n: torch.where(accept, lin_new[n], lin[n]) for n in lin}
+        st = st._replace(lam=torch.where(st.done, radius, radius_new), chi2=lin["chi2"],
+                         it=st.it + 1, done=st.done | stall)
+        chi2_h.append(st.chi2)
+        rad_h.append(st.lam)
+        acc_h.append(accept)
+    return BAResult(poses, points, chi2_init, torch.stack(chi2_h),
+                    torch.stack(rad_h), torch.stack(acc_h), st.it)
+
+
+ALGORITHMS = {
+    "lm": bundle_adjust,
+    "gn": bundle_adjust_gn,
+    "dogleg": bundle_adjust_dogleg,
+}
+
+
+def bundle_adjust_with(algorithm: str, prob: BAProblem, **kw) -> BAResult:
+    """BA by name, "lm", "gn" or "dogleg" (the role of g2o's
+    `OptimizationAlgorithmFactory`)."""
+    return ALGORITHMS[algorithm](prob, **kw)

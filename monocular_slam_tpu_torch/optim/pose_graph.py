@@ -6,10 +6,12 @@ Vertices are (F, 3, 5) Sim3 world->camera; an edge's residual is
 e_ij = log(S_meas_ij o S_j o S_i^-1) (g2o's EdgeSim3 convention). The 7x7
 Jacobians per endpoint come from `torch.func.jacfwd` through the exact
 Sim3 exp/log, vmapped over the edges, as the reference takes them from
-`jax.jacfwd`. The Hessian is dense (7F)^2 with a Cholesky per LM step; a
-failed factorization yields NaN, which the step rejects, as the
-reference's `cho_factor` does. The matrix-free `optimize_cg` is not on the
-ported path (the session's keyframe bucket keeps F <= 128).
+`jax.jacfwd`. `optimize` forms the dense (7F)^2 Hessian with a Cholesky per
+LM step; a failed factorization yields NaN, which the step rejects, as the
+reference's `cho_factor` does. `optimize_cg` keeps the same LM schedule on
+per-edge blocks and solves each step with block-Jacobi PCG
+(`optim/cg_ba.pcg`), never forming the Hessian: the loop closer's route
+for keyframe graphs past 128 vertices.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from monocular_slam_tpu_torch.geometry import sim3
-from monocular_slam_tpu_torch.optim import lm, robust
+from monocular_slam_tpu_torch.optim import cg_ba, lm, robust
 from monocular_slam_tpu_torch.utils import autodiff
 
 
@@ -145,6 +147,82 @@ def optimize(g: PoseGraph, n_iters: int = 20, tau: float = 1e-5,
         )
         chi2_h.append(st.chi2)
     return PoseGraphResult(verts, chi2_0, torch.stack(chi2_h), n_run)
+
+
+def _linearize_blocks(g: PoseGraph, verts, huber_delta=None):
+    """Per-edge linearization for the matrix-free path: residuals, Jacobians,
+    weights, chi2, gradient b (F, 7) and the block diagonal D (F, 7, 7) of H."""
+    F = verts.shape[0]
+    ii, jj = g.i_idx.long(), g.j_idx.long()
+    S_i, S_j = verts[ii], verts[jj]
+    r = edge_residual(S_i, S_j, g.meas)
+    Ji, Jj = edge_jacobians(S_i, S_j, g.meas)
+    w, chi2 = _edge_weights(g, r, huber_delta)
+    b = torch.zeros((F, 7), dtype=verts.dtype, device=verts.device)
+    b.index_add_(0, ii, -torch.einsum("eai,ea,e->ei", Ji, r, w))
+    b.index_add_(0, jj, -torch.einsum("eai,ea,e->ei", Jj, r, w))
+    D = torch.zeros((F, 7, 7), dtype=verts.dtype, device=verts.device)
+    D.index_add_(0, ii, torch.einsum("eai,eaj,e->eij", Ji, Ji, w))
+    D.index_add_(0, jj, torch.einsum("eai,eaj,e->eij", Jj, Jj, w))
+    return dict(r=r, Ji=Ji, Jj=Jj, w=w, chi2=chi2, b=b, D=D)
+
+
+def _hessian_matvec(g: PoseGraph, lin, lam, free, x):
+    """y = (H + lam I) x, gauge-masked (fixed rows act as identity), from the
+    edge blocks: O(E) work and memory."""
+    ii, jj = g.i_idx.long(), g.j_idx.long()
+    xf = torch.where(free[:, None], x, 0.0)
+    ge = lin["w"][:, None] * (torch.einsum("eai,ei->ea", lin["Ji"], xf[ii])
+                              + torch.einsum("eai,ei->ea", lin["Jj"], xf[jj]))
+    y = torch.zeros_like(x)
+    y.index_add_(0, ii, torch.einsum("eai,ea->ei", lin["Ji"], ge))
+    y.index_add_(0, jj, torch.einsum("eai,ea->ei", lin["Jj"], ge))
+    y = torch.where(free[:, None], y + lam * xf, 0.0)
+    return y + torch.where(free[:, None], 0.0, x)
+
+
+def optimize_cg(g: PoseGraph, n_iters: int = 20, tau: float = 1e-5, max_cg_iters: int = 100,
+                rtol: float = 1e-8, huber_delta=None) -> PoseGraphResult:
+    """`optimize`'s LM schedule with each damped step (H + lam I) dx = b
+    solved by block-Jacobi PCG, matrix-free. `n_iters_run` counts the LM
+    iterations that ran before the stall rule froze the loop."""
+    dt, dev = g.vertices.dtype, g.vertices.device
+    free = ~g.fixed
+    eye7 = torch.eye(7, dtype=dt, device=dev)
+
+    lin0 = _linearize_blocks(g, g.vertices, huber_delta)
+    st = lm.LMState(lm.init_lambda(torch.diagonal(lin0["D"], dim1=-2, dim2=-1).reshape(-1), tau),
+                    torch.tensor(2.0, dtype=dt, device=dev), lin0["chi2"],
+                    torch.tensor(0, dtype=torch.int32, device=dev),
+                    torch.tensor(False, device=dev))
+    verts = g.vertices
+    n_run = torch.tensor(0, dtype=torch.int32, device=dev)
+    chi2_h = []
+    for _ in range(n_iters):
+        n_run = n_run + (~st.done).to(torch.int32)
+        lin = _linearize_blocks(g, verts, huber_delta)
+        lam = st.lam
+        D_inv, info = torch.linalg.inv_ex(torch.where(free[:, None, None], lin["D"] + lam * eye7, eye7))
+        D_inv = torch.where((info == 0)[:, None, None], D_inv, float("nan"))
+        b = torch.where(free[:, None], lin["b"], 0.0)
+        dx, _ = cg_ba.pcg(
+            lambda x: _hessian_matvec(g, lin, lam, free, x),
+            lambda r: torch.where(free[:, None], (D_inv * r[:, None, :]).sum(-1), 0.0),
+            b, max_cg_iters, rtol)
+        verts_new = sim3.compose(sim3.exp(dx), verts)
+        chi2_cur, chi2_new = lin["chi2"], _chi2(g, verts_new, huber_delta)
+        rho = lm.gain_ratio(chi2_cur, chi2_new, dx.reshape(-1), b.reshape(-1), lam)
+        step_ok = (chi2_new < chi2_cur) & torch.isfinite(chi2_new)
+        lam_n, nu_n = lm.lm_step_accept(lam, st.nu, rho, step_ok)
+        verts = torch.where(step_ok & ~st.done, verts_new, verts)
+        stall = step_ok & (chi2_cur - chi2_new < 1e-9 * (chi2_cur + 1e-30))
+        st = lm.LMState(
+            torch.where(st.done, lam, lam_n), torch.where(st.done, st.nu, nu_n),
+            torch.where(st.done, st.chi2, torch.where(step_ok, chi2_new, chi2_cur)),
+            st.it + 1, st.done | stall,
+        )
+        chi2_h.append(st.chi2)
+    return PoseGraphResult(verts, lin0["chi2"], torch.stack(chi2_h), n_run)
 
 
 def sequential_graph(poses_sim3, valid, extra_i=None, extra_j=None, extra_meas=None,

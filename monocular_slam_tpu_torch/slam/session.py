@@ -5,9 +5,12 @@ image and feature paths and the loop-closer half of
 Frame 0 is the reference; later frames bootstrap against it until the
 two-view map is accepted; every frame after that runs one step: ORB
 extraction (the K1 kernel on a card) -> undistortion -> state ingest ->
-`tracker.track` -> the keyframe rule -> at keyframe rate plus the cadence
-floor and warmup, the mapping block fuse -> windowed local BA -> cull ->
-with a loop closer attached, `loop_closer.detect_step`.
+`tracker.track` -> the keyframe rule -> the mapping block -> with a loop
+closer attached, `loop_closer.detect_step`. The mapping block runs, as in
+the reference, either at keyframe rate plus the cadence floor and warmup
+(fuse -> windowed local BA -> cull; `BAConfig.keyframe_only`, the default)
+or on every tracked frame (local BA, then fuse every `fuse_every` and cull
+every `cull_every` frames).
 
 The reference compiles the step into one program with `lax.cond` around the
 mapping block. Here the step runs eagerly and pulls ONE packed vector per
@@ -21,19 +24,27 @@ as in the reference: the consistency check and closures, relocalization
 after `reloc_after` failures, and FrameCulling every `kf_cull_every`
 keyframes (dispatched on the state of its frame, applied `stat_lag` frames
 later). So closures, relocalizations and culls fire on the same frames as
-in the reference. Not ported: `prewarm` and `add_frame_from_buffer`.
+in the reference.
+
+`prewarm` pays the step's one-time costs (kernel builds, the first
+extraction, functorch's first-use imports) before frame 0;
+`add_frame_from_buffer` takes frames from a buffer already on the device.
 """
 
 from __future__ import annotations
 
 import math
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from monocular_slam_tpu_torch.geometry import alignment, sim3
 from monocular_slam_tpu_torch.geometry import camera as cam
+from monocular_slam_tpu_torch.ops import fast_score, hamming, orb
 from monocular_slam_tpu_torch.ops import features as features_mod
-from monocular_slam_tpu_torch.ops import orb
+from monocular_slam_tpu_torch.optim import pose_graph
 from monocular_slam_tpu_torch.slam import keyframes as kf_mod
 from monocular_slam_tpu_torch.slam import local_ba, mapping, tracker
 from monocular_slam_tpu_torch.slam import loop_closer as lc_mod
@@ -121,9 +132,6 @@ class SlamSession:
     def __init__(self, cfg: SlamConfig = SlamConfig(), seed: int = 0,
                  run_ba: bool = True, loop_closer: lc_mod.LoopCloser | None = None,
                  device=None):
-        if not cfg.ba.keyframe_only:
-            raise NotImplementedError(
-                "BAConfig.keyframe_only=False (per-frame BA cadence) is not ported")
         self.cfg = cfg
         self.run_ba = run_ba
         self.device = resolve_device(device)
@@ -249,6 +257,55 @@ class SlamSession:
                 return self._ingest(feats, k, timestamp)
             return self.add_frame_features(feats, k, timestamp, dist=dist)
 
+    def add_frame_from_buffer(self, buffer: torch.Tensor, idx: int, k, timestamp: float = 0.0,
+                              dist=None) -> FrameStats:
+        """Ingest frame `idx` of an (N, H, W) uint8 or float32 image buffer
+        that already lies on the session's device: the frame is sliced and
+        converted there, with no host-to-device copy of the image."""
+        if buffer.device.type != self.device.type or buffer.dim() != 3:
+            raise ValueError(f"add_frame_from_buffer takes an (N, H, W) buffer on {self.device}, "
+                             f"got {tuple(buffer.shape)} on {buffer.device}")
+        return self.add_frame(buffer[idx], k, timestamp, dist=dist)
+
+    def prewarm(self, image: bool = False, n_threads: int = 4) -> float:
+        """Pay the step's one-time costs before frame 0 and return the
+        seconds spent: on a card, K1 and K2 are built and loaded (one nvcc
+        each, in parallel; a failed build raises); with `image`, one
+        extraction of a zero image of `cfg.image_wh` in each steering mode
+        the session can use; with a loop closer, the pose graph's edge
+        Jacobians and the Sim3 RANSAC polish on tiny inputs, whose first
+        `torch.func` transforms import most of functorch. The session's
+        state, generator and counters are left as they were (the kernels'
+        launch counters count the warm-up extraction)."""
+        t0 = time.perf_counter()
+        dev = self.device
+        if dev.type == "cuda":
+            with ThreadPoolExecutor(n_threads) as ex:
+                for f in [ex.submit(fast_score.load), ex.submit(hamming.load)]:
+                    f.result()
+        with torch.inference_mode():
+            if image:
+                W, H = self.cfg.image_wh
+                zero = torch.zeros((H, W), dtype=torch.float32, device=dev)
+                fe = self.cfg.frontend
+                for mode in (("binned", "continuous") if self._auto_steer else (self._steer,)):
+                    features_mod.extract(zero, n_features=fe.n_features, n_levels=fe.n_levels,
+                                         fast_threshold=fe.fast_threshold, steer_mode=mode)
+            if self.loop_closer is not None:
+                S = sim3.identity(device=dev)[None].expand(2, 3, 5)
+                pose_graph.edge_jacobians(S, S, S)
+                g = torch.Generator().manual_seed(0)
+                Y = torch.rand((8, 3), generator=g).to(dev) + torch.tensor([0.0, 0.0, 4.0], device=dev)
+                T = torch.eye(4, device=dev)[:3]
+                k = torch.tensor([100.0, 100.0, 50.0, 50.0], device=dev)
+                uv = cam.project(k, Y)
+                alignment.ransac_sim3_reproj(None, Y, Y, torch.ones(8, dtype=torch.bool, device=dev),
+                                             uv, uv, k, k, T, T, n_iters=2,
+                                             u=torch.rand((2, 8), generator=g).to(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter() - t0
+
     def add_frame_features(self, feats: orb.Features, k, timestamp: float,
                            dist=None) -> FrameStats:
         """Ingest precomputed features; `dist` (radtan 5-vector) undistorts
@@ -312,10 +369,10 @@ class SlamSession:
         ov = torch.where(kf_resident, mapping.frame_overlap(self.state, i, kf0), 0.0)
         is_kf = tres.ok & ((last_kf < 0) | (ov < m.keyframe_overlap)
                            | (i - last_kf >= m.keyframe_max_gap))
-        run_map = is_kf
-        if cfg.ba.cadence_floor:
+        run_map = is_kf if cfg.ba.keyframe_only else tres.ok
+        if cfg.ba.keyframe_only and cfg.ba.cadence_floor:
             run_map = run_map | (tres.ok & (i % cfg.ba.cadence_floor == 0))
-        if cfg.ba.warmup_frames:
+        if cfg.ba.keyframe_only and cfg.ba.warmup_frames:
             run_map = run_map | (tres.ok & (i < cfg.ba.warmup_frames))
         ok, is_kf, run_map, n_inl, n_new = torch.stack([
             tres.ok.long(), is_kf.long(), run_map.long(),
@@ -327,20 +384,39 @@ class SlamSession:
             self._last_kf = i
 
         if run_map:
-            if m.enabled and is_kf:
-                r = mapping.fuse(self.state, i, radius_px=m.fuse_radius_px,
-                                 max_hamming=m.fuse_max_hamming, image_wh=cfg.image_wh)
-                self.state, st.n_fused = r.state, r.n_associated
-            if self.run_ba:
-                r = local_ba.local_bundle_adjust(self.state, i, cfg)
-                self.state, st.chi2_before, st.chi2_after = r.state, r.chi2_initial, r.chi2_final
-            if m.enabled and is_kf:
-                self.state, st.n_culled = mapping.cull_points(
-                    self.state, i, min_obs=m.cull_min_obs, grace=m.cull_grace)
+            self._map_block(i, st, bool(is_kf))
         lc = self.loop_closer
         if lc is not None:
             _, det = lc_mod.detect_step(lc.voc, lc.lc, lc._db, self.state, i, bool(is_kf))
             st._set_detect(det)
+
+    def _map_block(self, i: int, st: FrameStats, is_kf: bool) -> None:
+        """Fuse, windowed local BA (with `run_ba`) and point cull of frame i.
+        At keyframe rate, fuse -> BA -> cull, fusing and culling on keyframe
+        blocks only (the reference's LocalMapping cadence; floor and warmup
+        blocks solve alone); per frame, BA, then fuse every `fuse_every` and
+        cull every `cull_every` frames."""
+        cfg = self.cfg
+        m = cfg.mapping
+        per_frame = not cfg.ba.keyframe_only
+        fuse = m.enabled and (bool(m.fuse_every) and i % m.fuse_every == 0 if per_frame else is_kf)
+        cull = m.enabled and (bool(m.cull_every) and i % m.cull_every == 0 if per_frame else is_kf)
+
+        def do_fuse():
+            r = mapping.fuse(self.state, i, radius_px=m.fuse_radius_px,
+                             max_hamming=m.fuse_max_hamming, image_wh=cfg.image_wh)
+            self.state, st.n_fused = r.state, r.n_associated
+
+        if fuse and not per_frame:
+            do_fuse()
+        if self.run_ba:
+            r = local_ba.local_bundle_adjust(self.state, i, cfg)
+            self.state, st.chi2_before, st.chi2_after = r.state, r.chi2_initial, r.chi2_final
+        if fuse and per_frame:
+            do_fuse()
+        if cull:
+            self.state, st.n_culled = mapping.cull_points(
+                self.state, i, min_obs=m.cull_min_obs, grace=m.cull_grace)
 
     # --- lagged host processing: closures, relocalization, FrameCulling ----------
     def _enqueue(self, st: FrameStats) -> None:

@@ -150,7 +150,7 @@ def relocalize(state: SlamState, i: int, cand: int, gen, cfg: SlamConfig, u=None
         px_thresh=cfg.track.pnp_px_thresh, min_inliers=cfg.track.reloc_min_inliers, u=u,
     )
     rres = pose_ba.refine_pose(pres.T, X, uv_i, k_i, (pres.inliers & has).to(uv_i.dtype),
-                               n_rounds=3)
+                               n_rounds=3, solver="gn")
     n = torch.maximum(pres.n_inliers, rres.n_inliers)
     ok = (n >= cfg.track.reloc_min_inliers) & cand_ok
     use_ref = rres.n_inliers >= pres.n_inliers
@@ -342,7 +342,8 @@ def track(state: SlamState, i: int, gen, cfg: SlamConfig, u=None) -> TrackResult
                                          cfg.track.local_radius_px, cfg)
         assoc = (fp_i >= 0) & kv_i
         Xa = state.points[torch.clamp(fp_i, min=0).long()]
-        rres = pose_ba.refine_pose(T_i, Xa, uv_i, k_i, assoc.to(dtype), n_rounds=3)
+        rres = pose_ba.refine_pose(T_i, Xa, uv_i, k_i, assoc.to(dtype), n_rounds=3,
+                                   solver="gn")
         use = rres.n_inliers >= pres.n_inliers
         T_i = torch.where(use, rres.T, T_i)
         fp_i = torch.where(adopt & use & ~rres.inliers, -1, fp_i)

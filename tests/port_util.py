@@ -10,12 +10,25 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import pytest
 import torch
 
 # the rendered course of `tests/test_render_e2e.py`: key 3, 12 frames, 320x240
 COURSE_KEY = 3
 COURSE_FRAMES = 12
 COURSE_WH = (320, 240)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op torch thread while a module's tests run. The suite runs
+    several worker processes at once, and torch's default of one thread per
+    core in each of them oversubscribes the CPU: the port's small-op solver
+    and session loops ran 2-10x slower that way."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def np32(x) -> np.ndarray:

@@ -273,3 +273,78 @@ def test_loop_closer_session_on_cuda(cuda):
     assert sess.reloc_attempts >= 1 and hamming.LAUNCHES >= 2
     assert np.isfinite(poses).all() and valid[:12].all()
     assert lc._db.abs().sum() > 0
+
+
+def test_cg_solvers_on_cuda_match_cpu(cuda):
+    """`cg_ba.bundle_adjust_cg` and `pose_graph.optimize_cg` on the card
+    against the same float32 solves on the CPU (the card's segment sums are
+    float atomics, so the last bits differ)."""
+    from monocular_slam_tpu_torch.geometry import se3, sim3
+    from monocular_slam_tpu_torch.optim import ba, cg_ba, pose_graph
+
+    rng = np.random.RandomState(0)
+    F, P = 8, 200
+    X = rng.uniform(-2, 2, (P, 3)) + [0, 0, 6.0]
+    xi = np.concatenate([np.zeros((F, 3)), np.stack([-0.3 * np.arange(F), 0.02 * np.arange(F),
+                                                     0.05 * np.arange(F)], 1)], 1)
+    xi[:, 4] += 0.12 * np.arange(F)
+    poses = se3.exp(torch.as_tensor(xi, dtype=torch.float32)).numpy()
+    cam, pt = np.repeat(np.arange(F), P), np.tile(np.arange(P), F)
+    Xc = np.einsum("eij,ej->ei", poses[cam, :, :3], X[pt]) + poses[cam, :, 3]
+    k = np.array([517.3, 516.5, 318.6, 255.3])
+    uv = k[:2] * Xc[:, :2] / Xc[:, 2:] + k[2:] + 0.4 * rng.randn(F * P, 2)
+    p0 = se3.compose(se3.exp(torch.as_tensor(0.02 * rng.randn(F, 6), dtype=torch.float32)),
+                     torch.as_tensor(poses)).numpy()
+    p0[:2] = poses[:2]
+    fixed = np.arange(F) < 2
+    args = [p0, X + 0.05 * rng.randn(P, 3), np.tile(k, (F, 1)), cam, pt, uv, np.ones(F * P),
+            rng.rand(F * P) < 0.6, fixed]
+
+    def prob(dev):
+        return ba.BAProblem(*[torch.as_tensor(a if a.dtype.kind in "bi" else a.astype(np.float32),
+                                              device=dev) for a in map(np.asarray, args)])
+
+    rc = cg_ba.bundle_adjust_cg(prob("cpu"), n_iters=8, max_cg_iters=50)
+    rg = cg_ba.bundle_adjust_cg(prob(cuda), n_iters=8, max_cg_iters=50)
+    torch.testing.assert_close(rg.chi2_history.cpu(), rc.chi2_history, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(rg.poses.cpu(), rc.poses, rtol=0, atol=1e-4)
+    assert float(rc.chi2_history[-1]) < 0.2 * float(rc.chi2_initial)
+
+    n = 40
+    step = np.concatenate([0.02 * rng.randn(n, 6), np.full((n, 1), 0.005)], 1)
+    truth = sim3.exp(torch.as_tensor(np.cumsum(rng.randn(n, 7) * [0.05] * 6 + [0.0], 0),
+                                     dtype=torch.float32))
+    est = sim3.compose(sim3.exp(torch.as_tensor(np.cumsum(step, 0), dtype=torch.float32)), truth)
+    meas = sim3.compose(truth[n - 1], sim3.inverse(truth[0]))[None]
+    res = {}
+    for dev in ("cpu", cuda):
+        g = pose_graph.sequential_graph(est.to(dev), torch.ones(n, dtype=torch.bool, device=dev),
+                                        [n - 1], [0], meas.to(dev), loop_weight=20.0)
+        res[str(dev)] = pose_graph.optimize_cg(g, n_iters=10, huber_delta=1.0)
+    rc, rg = res["cpu"], res[str(cuda)]
+    assert int(rg.n_iters_run) == int(rc.n_iters_run)
+    torch.testing.assert_close(rg.vertices.cpu(), rc.vertices, rtol=0, atol=1e-4)
+    assert float(rc.chi2_history[-1]) < 0.2 * float(rc.chi2_initial)
+
+
+def test_prewarm_and_buffer_on_cuda(cuda):
+    """`prewarm` on the card builds K1 and K2 and launches K1 once per
+    steering mode; frames from a uint8 buffer on the card track."""
+    from monocular_slam_tpu_torch.datasets import render
+    from monocular_slam_tpu_torch.retrieval import vocabulary
+    from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
+    from monocular_slam_tpu_torch.slam.loop_closer import LoopCloser
+    from monocular_slam_tpu_torch.slam.session import SlamSession
+
+    imgs, _, k = render.render_sequence(seed=3, n_frames=8, wh=(320, 240), device=cuda)
+    cfg = SlamConfig(max_frames=16, max_points=4000, image_wh=(320, 240),
+                     frontend=FrontendConfig(n_features=600))
+    sess = SlamSession(cfg, seed=0, loop_closer=LoopCloser(vocabulary.load_default(), cfg))
+    before = fast_score.LAUNCHES
+    assert sess.prewarm(image=True) > 0
+    assert fast_score.LAUNCHES == before + 2  # "auto" steering: both modes
+    buf = imgs.to(torch.uint8)
+    for i in range(8):
+        sess.add_frame_from_buffer(buf, i, k, i / 30.0)
+    poses, valid, _ = sess.trajectory()
+    assert valid.sum() >= 7 and np.isfinite(poses).all()

@@ -17,6 +17,7 @@ from monocular_slam_tpu_torch.ops import fast_score as tfs
 from monocular_slam_tpu_torch.ops import matching as tmatch
 from monocular_slam_tpu_torch.ops import orb as torb
 from port_util import jnp32, np32, t32
+from port_util import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _kernel_test_image(seed, h=96, w=160):

@@ -24,6 +24,7 @@ from monocular_slam_tpu_torch.geometry import so3 as tso3
 from monocular_slam_tpu_torch.geometry import triangulate as ttri
 from monocular_slam_tpu_torch.utils import linalg as tlin
 from port_util import assert_close, jnp32, np32, random_poses, t32, uniforms
+from port_util import one_torch_thread  # noqa: F401 (autouse)
 
 K = np.array([517.3, 516.5, 318.6, 255.3], np.float32)
 

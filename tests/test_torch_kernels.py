@@ -19,6 +19,7 @@ from monocular_slam_tpu.retrieval import vocabulary as jvoc
 from monocular_slam_tpu_torch.ops import hamming as tham
 from monocular_slam_tpu_torch.ops import matching as tmatch
 from monocular_slam_tpu_torch.retrieval import vocabulary as tvoc
+from port_util import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 

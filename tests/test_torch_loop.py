@@ -11,7 +11,10 @@ geometry unless stated beside an assertion, exact for integers and masks.
     `tracker.relocalize`, `detect_step`, `_correct_impl` and `_gba_impl`;
   - the session: the feature-path revisit of `tests/test_loop_closure.py`
     through both sessions, and the relocalization blackout of
-    `tests/test_long_trajectory.py` through the port's.
+    `tests/test_long_trajectory.py` through the port's;
+  - the scale routes: `correct` with a keyframe bucket past 128 vertices
+    (`pose_graph.optimize_cg`), `_global_ba` past F*P = 4e6
+    (`cg_ba.bundle_adjust_cg`), and the revisit session on both.
 """
 
 import dataclasses
@@ -29,6 +32,7 @@ from monocular_slam_tpu.geometry import camera as jcam
 from monocular_slam_tpu.geometry import se3 as jse3
 from monocular_slam_tpu.geometry import sim3 as jsim3
 from monocular_slam_tpu.optim import ba as jba
+from monocular_slam_tpu.optim import cg_ba as jcg
 from monocular_slam_tpu.optim import pose_graph as jpg
 from monocular_slam_tpu.retrieval import vocabulary as jvoc
 from monocular_slam_tpu.slam import keyframes as jkf
@@ -43,6 +47,7 @@ from monocular_slam_tpu_torch.geometry import alignment as tal
 from monocular_slam_tpu_torch.geometry import sim3 as tsim3
 from monocular_slam_tpu_torch.ops import orb
 from monocular_slam_tpu_torch.optim import ba as tba
+from monocular_slam_tpu_torch.optim import cg_ba as tcg
 from monocular_slam_tpu_torch.optim import pose_graph as tpg
 from monocular_slam_tpu_torch.retrieval import vocabulary as tvoc
 from monocular_slam_tpu_torch.slam import keyframes as tkf
@@ -52,6 +57,7 @@ from monocular_slam_tpu_torch.slam import tracker as ttrack
 from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
 from monocular_slam_tpu_torch.slam.session import SlamSession as TSession
 from port_util import assert_close, jnp32, np32, random_poses, t32, uniforms
+from port_util import one_torch_thread  # noqa: F401 (autouse)
 
 K = np.array([517.3, 516.5, 318.6, 255.3], np.float32)
 
@@ -398,6 +404,104 @@ def test_session_loop_revisit(loop_run):
     assert r <= max(1.5 * ref, ref + 0.005), (r, ref)
     st = sess.stats[-1]
     assert st.cand_n >= 0 and np.isfinite(st.cand_score)
+
+
+# --- the scale routes -----------------------------------------------------------------
+
+def _count_calls(monkeypatch, module, name):
+    """Wrap module.name to count its calls (the JAX closer reaches its
+    solvers through module attributes while tracing)."""
+    calls = []
+    orig = getattr(module, name)
+
+    def counted(*a, **kw):
+        calls.append(name)
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+def test_correct_cg_route(loop_run, monkeypatch):
+    """`correct` with a 160-vertex keyframe bucket: both closers take the
+    matrix-free pose graph, and the corrected states agree."""
+    i, j, S = _closure_inputs(loop_run)
+    lcfg = dict(loop_run["lcfg"], run_global_ba=False, kf_bucket=160)
+    jl = jlc.LoopCloser(voc=loop_run["jv"], cfg=loop_run["jcfg"], lc=jlc.LoopClosureConfig(**lcfg))
+    tl = tlc.LoopCloser(loop_run["tv"], loop_run["tcfg"], tlc.LoopClosureConfig(**lcfg), device="cpu")
+    j_calls = _count_calls(monkeypatch, jpg, "optimize_cg")
+    t_calls = _count_calls(monkeypatch, tpg, "optimize_cg")
+    kfs = loop_run["keyframes"]
+    js, jok = jl.correct(_jstate(loop_run["state"]), i, j, jnp.asarray(S), keyframes=kfs)
+    ts, tok = tl.correct(tstate.state_from_numpy(loop_run["state"]), i, j, torch.as_tensor(S),
+                         keyframes=kfs)
+    assert tok is jok is True and len(j_calls) == len(t_calls) == 1
+    assert np.abs(np32(ts.poses) - loop_run["state"]["poses"]).max() > 1e-3
+    _assert_states_close(ts, js, atol=5e-4)
+
+
+def test_global_ba_cg_route(loop_run, monkeypatch):
+    """`_global_ba` on the fixture's state with its point tier padded by
+    invalid rows to P = 65536 (F*P > 4e6): both take the CG engine."""
+    st = dict(loop_run["state"])
+    P = 65536
+    n = st["points"].shape[0]
+    st["points"] = np.concatenate([st["points"], np.zeros((P - n, 3), np.float32)])
+    st["point_valid"] = np.concatenate([st["point_valid"], np.zeros(P - n, bool)])
+    F = st["poses"].shape[0]
+    assert F * P > 4_000_000
+    kfs = [f for f in loop_run["keyframes"] if st["pose_valid"][f]]
+    pad = np.zeros(F, np.int64)
+    pad[: len(kfs)] = kfs
+    rng = np.random.RandomState(7)
+    st["poses"] = st["poses"].copy()
+    st["poses"][kfs[1:], :, 3] += 0.01 * rng.randn(len(kfs) - 1, 3).astype(np.float32)
+    lcfg = dict(loop_run["lcfg"], global_ba_iters=4)
+    jl = jlc.LoopCloser(voc=loop_run["jv"], cfg=loop_run["jcfg"], lc=jlc.LoopClosureConfig(**lcfg))
+    tl = tlc.LoopCloser(loop_run["tv"], loop_run["tcfg"], tlc.LoopClosureConfig(**lcfg), device="cpu")
+    j_calls = _count_calls(monkeypatch, jcg, "bundle_adjust_cg")
+    t_calls = _count_calls(monkeypatch, tcg, "bundle_adjust_cg")
+    js = jl._global_ba(_jstate(st), pad.astype(np.int32), len(kfs))
+    ts = tl._global_ba(tstate.state_from_numpy(st), torch.as_tensor(pad), len(kfs))
+    assert len(j_calls) == len(t_calls) == 1
+    assert np.abs(np32(ts.poses) - st["poses"]).max() > 1e-3
+    _assert_states_close(ts, js, atol=5e-4)
+
+
+def test_session_loop_revisit_scale_routes(loop_run, monkeypatch):
+    """The feature-path revisit with max_points 65536 and a 160-vertex
+    keyframe bucket, through both sessions, with the near-identity gate off
+    so that the closure is corrected (this course's drift is below it): the
+    correction takes both CG routes, the port closes the same loops as the
+    reference, and its ATE stays within max(1.5 x reference,
+    reference + 5 mm)."""
+    seq = loop_run["seq"]
+    kw = dict(max_frames=64, max_points=65536)
+    lcfg = dict(loop_run["lcfg"], kf_bucket=160, id_rot_rad=0.0, id_trans=0.0, id_log_scale=0.0)
+    jcfg = JConfig(frontend=JFrontend(n_features=256), **kw)
+    jl = jlc.LoopCloser(voc=loop_run["jv"], cfg=jcfg, lc=jlc.LoopClosureConfig(**lcfg))
+    js = JSession(jcfg, seed=3, run_ba=True, loop_closer=jl)
+    for i, f in enumerate(seq.frames):
+        js.add_frame_features(f, seq.k, seq.timestamps[i])
+    jposes, jvalid, _ = js.trajectory()
+    gt = np.asarray(seq.poses_gt)
+    ref = jate.ate(jposes[jvalid], gt[jvalid]).rmse
+
+    pg_calls = _count_calls(monkeypatch, tpg, "optimize_cg")
+    ba_calls = _count_calls(monkeypatch, tcg, "bundle_adjust_cg")
+    tcfg = SlamConfig(frontend=FrontendConfig(n_features=256), **kw)
+    tl = tlc.LoopCloser(loop_run["tv"], tcfg, tlc.LoopClosureConfig(**lcfg), device="cpu")
+    sess = TSession(tcfg, seed=3, run_ba=True, loop_closer=tl, device="cpu")
+    k = np.asarray(seq.k, np.float32)
+    for i, f in enumerate(seq.frames):
+        sess.add_frame_features(_t_features(f), k, float(seq.timestamps[i]))
+    poses, valid, _ = sess.trajectory()
+    assert tl.closures == jl.closures and len(tl.closures) >= 1
+    assert tl.corrected == jl.corrected
+    assert len(pg_calls) >= 1 and len(ba_calls) >= 1
+    r = tate.ate(poses[valid], gt[valid]).rmse
+    assert valid.sum() >= jvalid.sum() - 2
+    assert r <= max(1.5 * ref, ref + 0.005), (r, ref)
 
 
 def test_session_relocalizes_after_blackout():

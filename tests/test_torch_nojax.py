@@ -1,6 +1,7 @@
 """The port runs without JAX: a fresh interpreter in which `import jax`
-fails imports every module of `monocular_slam_tpu_torch` and runs `extract`
-and a few session frames on the CPU."""
+fails imports every module of `monocular_slam_tpu_torch` and runs `extract`,
+a few session frames, and a prewarmed loop-closing session fed from a frame
+buffer on the CPU."""
 
 import os
 import subprocess
@@ -14,6 +15,7 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.modules["monocular_slam_tpu"] = None
 import numpy as np, torch
+torch.set_num_threads(1)  # beside the suite's other worker processes
 import monocular_slam_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for n in names:
@@ -38,8 +40,9 @@ from monocular_slam_tpu_torch.retrieval import vocabulary
 from monocular_slam_tpu_torch.slam.loop_closer import LoopCloser
 lc = LoopCloser(vocabulary.load_default(device="cpu"), cfg, device="cpu")
 sess = SlamSession(cfg, seed=0, loop_closer=lc, device="cpu")
+assert sess.prewarm(image=True) > 0
 for i in range(3):
-    sess.add_frame(imgs[i], k, i / 30.0)
+    sess.add_frame_from_buffer(imgs.to(torch.uint8), i, k, i / 30.0)
 sess.flush()
 assert lc._db.shape == (4, 10**4) and sess.stats[-1].cand_j >= -1
 q = vocabulary.bow_vector(lc.voc, f.desc_pm1, f.valid)

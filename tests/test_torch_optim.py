@@ -18,6 +18,7 @@ from monocular_slam_tpu_torch.optim import residuals as tres
 from monocular_slam_tpu_torch.optim import robust as trob
 from monocular_slam_tpu_torch.optim import window_ba as twba
 from port_util import assert_close, jnp32, np32, random_poses, t32
+from port_util import one_torch_thread  # noqa: F401 (autouse)
 
 K = np.array([517.3, 516.5, 318.6, 255.3], np.float32)
 
@@ -105,7 +106,7 @@ def test_refine_pose_gn():
     w = (rng.rand(n) > 0.1).astype(np.float32)
     T0 = np32(jse3.compose(jse3.exp(jnp32(0.01 * rng.randn(6))), jnp32(T)))
     rj = jpba.refine_pose(jnp32(T0), jnp32(X), jnp32(uv), jnp32(K), jnp32(w), n_rounds=3, solver="gn")
-    rt = tpba.refine_pose(t32(T0), t32(X), t32(uv), t32(K), t32(w), n_rounds=3)
+    rt = tpba.refine_pose(t32(T0), t32(X), t32(uv), t32(K), t32(w), n_rounds=3, solver="gn")
     np.testing.assert_allclose(np32(rt.T), np32(rj.T), atol=1e-4)
     np.testing.assert_array_equal(np32(rt.inliers), np.asarray(rj.inliers))
     np.testing.assert_allclose(float(rt.chi2), float(rj.chi2), rtol=1e-4)

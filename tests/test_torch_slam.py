@@ -15,6 +15,7 @@ from monocular_slam_tpu_torch.slam import state as tstate
 from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
 from monocular_slam_tpu_torch.utils import scatter
 from port_util import np32
+from port_util import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _cfgs():
@@ -151,12 +152,123 @@ def test_slot_eviction_matches_reference():
     assert ts._slot_frame[slot] == prev
 
 
-def test_unported_cadence_raises():
+def test_unported_cadence_raises(monkeypatch):
+    """`BAConfig.keyframe_only=False`, the reference's per-frame cadence
+    (local BA on every tracked frame, fuse every `fuse_every` and cull every
+    `cull_every` frames), through both sessions on a feature course: the
+    port runs each stage on exactly its frames, tracks the same frames,
+    culls the same points per frame, and keeps an ATE within
+    max(1.5 x reference, reference + 5 mm)."""
     import dataclasses
 
+    import jax
+
+    from monocular_slam_tpu.datasets import synthetic
+    from monocular_slam_tpu.eval import ate as jate
+    from monocular_slam_tpu.slam.session import SlamSession as JSession
+    from monocular_slam_tpu_torch.ops import orb
+    from monocular_slam_tpu_torch.slam import local_ba, mapping
     from monocular_slam_tpu_torch.slam.session import SlamSession
 
-    _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError):
-        SlamSession(dataclasses.replace(tcfg, ba=dataclasses.replace(tcfg.ba, keyframe_only=False)),
-                    device="cpu")
+    ran = {"ba": [], "fuse": [], "cull": []}
+    for name, mod, attr in (("ba", local_ba, "local_bundle_adjust"), ("fuse", mapping, "fuse"),
+                            ("cull", mapping, "cull_points")):
+        def counted(state, i, *a, _name=name, _orig=getattr(mod, attr), **kw):
+            ran[_name].append(i)
+            return _orig(state, i, *a, **kw)
+
+        monkeypatch.setattr(mod, attr, counted)
+
+    seq = synthetic.feature_sequence(jax.random.PRNGKey(2), n_frames=16, n_world_points=900,
+                                     n_features=256, pix_noise=0.3, drop_prob=0.08)
+    kw = dict(max_frames=16, max_points=3000)
+    jcfg = JConfig(frontend=JFrontend(n_features=256), **kw)
+    tcfg = SlamConfig(frontend=FrontendConfig(n_features=256), **kw)
+    jcfg = dataclasses.replace(jcfg, ba=dataclasses.replace(jcfg.ba, keyframe_only=False))
+    tcfg = dataclasses.replace(tcfg, ba=dataclasses.replace(tcfg.ba, keyframe_only=False))
+    js, ts = JSession(jcfg, seed=1), SlamSession(tcfg, seed=1, device="cpu")
+    k = np.asarray(seq.k, np.float32)
+    for i, f in enumerate(seq.frames):
+        js.add_frame_features(f, seq.k, seq.timestamps[i])
+        arrs = [np.array(x) for x in f]
+        ts.add_frame_features(orb.Features(*[torch.as_tensor(a.view(np.int32) if a.dtype == np.uint32
+                                                             else a) for a in arrs]),
+                              k, float(seq.timestamps[i]))
+    jp, jv, _ = js.trajectory()
+    tp, tv, _ = ts.trajectory()
+    np.testing.assert_array_equal(tv, jv)
+    m = tcfg.mapping
+    stepped = [s.frame for s in ts.stats[2:] if s.tracked]  # frames after the bootstrap pair
+    assert ran["ba"] == stepped and len(stepped) >= 12
+    assert ran["fuse"] == [i for i in stepped if i % m.fuse_every == 0]
+    assert ran["cull"] == [i for i in stepped if i % m.cull_every == 0]
+    assert [s.n_culled for s in ts.stats] == [s.n_culled for s in js.stats]
+    assert sum(s.n_culled for s in ts.stats) > 0
+    gt = np.asarray(seq.poses_gt)
+    ref = jate.ate(jp[jv], gt[jv]).rmse
+    assert jate.ate(tp[tv], gt[tv]).rmse <= max(1.5 * ref, ref + 0.005)
+
+
+@pytest.fixture(scope="module")
+def image_course():
+    """Eight rendered 320x240 frames, the config, and the trajectory of a
+    loop-closing session fed by `add_frame` (the reference run for the
+    buffer and prewarm tests)."""
+    from monocular_slam_tpu_torch.datasets import render
+
+    imgs, _, k = render.render_sequence(seed=2, n_frames=8, wh=(320, 240), tex_size=512,
+                                        device="cpu")
+    cfg = SlamConfig(max_frames=16, max_points=2000, image_wh=(320, 240),
+                     frontend=FrontendConfig(n_features=300))
+    sess = _image_session(cfg)
+    for i in range(imgs.shape[0]):
+        sess.add_frame(imgs[i], k, i / 30.0)
+    return imgs, k, cfg, sess.trajectory()
+
+
+def _image_session(cfg):
+    from monocular_slam_tpu_torch.retrieval import vocabulary
+    from monocular_slam_tpu_torch.slam.loop_closer import LoopCloser
+    from monocular_slam_tpu_torch.slam.session import SlamSession
+
+    lc = LoopCloser(vocabulary.load_default(device="cpu"), cfg, device="cpu")
+    return SlamSession(cfg, seed=0, loop_closer=lc, device="cpu")
+
+
+def test_add_frame_from_buffer(image_course):
+    """Frames taken from a uint8 (N, H, W) buffer on the session's device
+    give the `add_frame` trajectory exactly; a buffer elsewhere raises."""
+    imgs, k, cfg, (poses, valid, stamps) = image_course
+    buf = imgs.to(torch.uint8)
+    sess = _image_session(cfg)
+    for i in range(buf.shape[0]):
+        sess.add_frame_from_buffer(buf, i, k, i / 30.0)
+    p, v, s = sess.trajectory()
+    assert valid.sum() >= 6
+    np.testing.assert_array_equal(v, valid)
+    np.testing.assert_array_equal(p, poses)
+    np.testing.assert_array_equal(s, stamps)
+    with pytest.raises(ValueError):
+        sess.add_frame_from_buffer(buf.to("meta"), 0, k)
+
+
+def test_prewarm_keeps_the_trajectory(image_course):
+    """`prewarm` (the zero-image extraction in both steering modes and the
+    loop closer's functorch paths) returns its seconds and leaves state,
+    generator and counters alone: the trajectory is bit-identical."""
+    from monocular_slam_tpu_torch.slam import state as tstate
+
+    imgs, k, cfg, (poses, valid, _) = image_course
+    sess = _image_session(cfg)
+    before = tstate.state_to_numpy(sess.state)
+    gen_state = sess.gen.get_state()
+    secs = sess.prewarm(image=True)
+    assert secs > 0.0 and torch.equal(sess.gen.get_state(), gen_state)
+    after = tstate.state_to_numpy(sess.state)
+    assert all(np.array_equal(before[n], after[n]) for n in before)
+    assert sess._next == 0 and not sess.stats and sess.reloc_attempts == 0
+    for i in range(imgs.shape[0]):
+        sess.add_frame(imgs[i], k, i / 30.0)
+    p, v, _ = sess.trajectory()
+    np.testing.assert_array_equal(v, valid)
+    np.testing.assert_array_equal(p, poses)

@@ -46,6 +46,7 @@ from monocular_slam_tpu_torch.slam import tracker as ttrack
 from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
 from monocular_slam_tpu_torch.slam.session import SlamSession as TSession
 from port_util import COURSE_FRAMES, COURSE_WH, jnp32, np32, rendered_course, t32, uniforms
+from port_util import one_torch_thread  # noqa: F401 (autouse)
 
 N_FEAT = 600
 SNAP = 6  # the track-step test starts from the state after frame SNAP - 1
