@@ -3,6 +3,27 @@
     python3 chip_profile.py          # the loop course, split by stage
     python3 chip_profile.py window   # the tracker's window: dense vs K2
     python3 chip_profile.py long [traj.npz]   # benchmarks/long_run.py's 1000 frames, by stage
+    python3 chip_profile.py cli      # the CLI on chip_smoke.py's cli course, by stage
+    python3 chip_profile.py cgdense  # CG vs dense global BA on the loop state, by PCG steps
+    python3 chip_profile.py cgsteps  # chip_smoke.py's long phase at the reference's PCG steps and the port's
+
+`cgdense`: the loop course of `chip_smoke.py`, then global BA on its
+perturbed final state through the CG route at 50, 100, 200 and 400 PCG
+steps against the dense route (the largest pose difference over the dense
+route's largest move, and the scale of a Sim(3) fit of the CG keyframe
+centres onto the dense ones), then the scale phase's `correct` comparison
+with the CG pose graph at 100, 200, 300 and 400 PCG steps.
+
+`cgsteps`: `chip_smoke.run_long` (400 frames) twice in one process, the
+loop closer's CG routes at the reference's PCG step counts (50 for global
+BA, 100 for the pose graph) and at the port's (`GLOBAL_BA_CG_ITERS`,
+`POSE_GRAPH_CG_ITERS`): tracked, ATE, closures, closure stage seconds.
+
+`cli`: `chip_smoke.py`'s cli course (200 frames of the long run's orbit
+written as a TUM directory) through `run.main` in this process with every
+stage wrapped as below, the PNG decode (`TumSequence.load_image`) too.
+Prints the stage rows (shares of the CLI's own main-loop wall time), then
+the CLI's summary.
 
 `long`: `chip_smoke.run_long` over the full 1000 frames of the long-run
 configuration, with every stage wrapped as below (the CG pose graph and the
@@ -135,6 +156,102 @@ def long_run(smi: str, traj_path: str | None) -> int:
     return 0
 
 
+def cli_run(smi: str) -> int:
+    import shutil
+    import tempfile
+
+    import chip_smoke as cs
+    from monocular_slam_tpu_torch.datasets import tum
+
+    work = tempfile.mkdtemp(prefix="chip_profile_cli_")
+    try:
+        course = cs.cli_course(work)
+        t = stage_timer()
+        t.wrap(tum.TumSequence, "load_image", "PNG decode (load_image)")
+        try:
+            summary, _ = cs._run_main_inprocess(cs.cli_args(course["root"], f"{work}/out"))
+        finally:
+            t.restore()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print_stages(t, cs.CLI_FRAMES, summary["wall_s"] * 1e3)
+    print(json.dumps({"device": smi, **summary,
+                      **{n: course[n] for n in ("render_s", "write_s", "decode_s")}}), flush=True)
+    return 0
+
+
+def cg_dense(smi: str) -> int:
+    import chip_smoke as cs
+    from monocular_slam_tpu_torch.eval.ate import umeyama_sim3
+    from monocular_slam_tpu_torch.optim import cg_ba, pose_graph
+    from monocular_slam_tpu_torch.retrieval import vocabulary
+
+    frames, real, poses_gt, k = cs._loop_frames(torch.device("cuda"))
+    out, sess = cs.run_loop(frames, real, poses_gt, k, vocabulary.load_default(), "bundled")
+    print(json.dumps({k: out[k] for k in ("closures", "corrected", "skipped_identity",
+                                          "tracked_real", "ate_m")}), flush=True)
+    lc, state = sess.loop_closer, sess.state
+    valid = state.pose_valid.cpu().numpy()
+    kfs = [f for f in sess._keyframes if valid[f]]
+    pad = torch.zeros(state.poses.shape[0], dtype=torch.long, device="cuda")
+    pad[: len(kfs)] = torch.as_tensor(kfs, device="cuda")
+    poses = state.poses.clone()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    poses[kfs[1:], :, 3] += 0.01 * torch.randn((len(kfs) - 1, 3), generator=g, device="cuda")
+    st = state._replace(poses=poses)
+    n = lc.lc.global_ba_iters
+
+    def centres(s):
+        p = s.poses[kfs].double()
+        return (-(p[:, :, :3].transpose(1, 2) @ p[:, :, 3:])[..., 0]).cpu().numpy()
+
+    with torch.inference_mode():
+        dense = lc._gba_impl(st, pad, len(kfs), lc.global_ba_solver(cg=False))
+        moved = (dense.poses - st.poses)[state.pose_valid].abs().max().item()
+        for steps in (50, 100, 200, 400):
+            cg = lc._gba_impl(st, pad, len(kfs), lambda pr: cg_ba.bundle_adjust_cg(
+                pr, n_iters=n, max_cg_iters=steps))
+            diff = (cg.poses - dense.poses)[state.pose_valid].abs().max().item()
+            s_fit, _, _ = umeyama_sim3(centres(cg), centres(dense))
+            print(json.dumps({"global_ba_pcg_steps": steps, "max_pose_diff_m": diff,
+                              "dense_moved_pose_m": moved, "ratio": diff / moved,
+                              "sim3_scale_cg_to_dense": s_fit}), flush=True)
+    plain = pose_graph.optimize_cg
+    try:
+        for steps in (100, 200, 300, 400):
+            pose_graph.optimize_cg = lambda gr, steps=steps, **kw: plain(
+                gr, **{**kw, "max_cg_iters": steps})
+            row = cs._cg_vs_dense(sess, out["closures"][0])["correct"]
+            print(json.dumps({"pose_graph_pcg_steps": steps, "pose_ratio": row["max_pose_diff_m"]
+                              / row["dense_moved_pose_m"], "p99_point_ratio":
+                              row["p99_point_diff_m"] / row["dense_moved_p99_point_m"], **row}),
+                  flush=True)
+    finally:
+        pose_graph.optimize_cg = plain
+    print(json.dumps({"device": smi}), flush=True)
+    return 0
+
+
+def cg_steps(smi: str) -> int:
+    import chip_smoke as cs
+    from monocular_slam_tpu_torch.slam import loop_closer
+
+    port = loop_closer.GLOBAL_BA_CG_ITERS, loop_closer.POSE_GRAPH_CG_ITERS
+    try:
+        for steps in ((50, 100), port):
+            loop_closer.GLOBAL_BA_CG_ITERS, loop_closer.POSE_GRAPH_CG_ITERS = steps
+            out, _ = cs.run_long(cs.LONG_FRAMES)
+            print(json.dumps({"pcg_steps_global_ba_pose_graph": steps,
+                              **{k: out[k] for k in ("tracked", "ate_m", "fps", "closures",
+                                                     "corrected", "closure_s_per_run")},
+                              "routes": {r: len(c) for r, c in out["routes"].items()}}),
+                  flush=True)
+    finally:
+        loop_closer.GLOBAL_BA_CG_ITERS, loop_closer.POSE_GRAPH_CG_ITERS = port
+    print(json.dumps({"device": smi}), flush=True)
+    return 0
+
+
 def first_calls() -> dict:
     """First and second call, in a fresh process, of the library routines
     the loop closer adds: one-time start-up against steady cost (ms)."""
@@ -207,6 +324,12 @@ def main() -> int:
     print(smi, flush=True)
     if sys.argv[1:] == ["window"]:
         return window_ab(smi)
+    if sys.argv[1:] == ["cgsteps"]:
+        return cg_steps(smi)
+    if sys.argv[1:] == ["cgdense"]:
+        return cg_dense(smi)
+    if sys.argv[1:] == ["cli"]:
+        return cli_run(smi)
     if sys.argv[1:2] == ["long"]:
         return long_run(smi, sys.argv[2] if len(sys.argv) > 2 else None)
     print(json.dumps({"first_and_second_call_ms": first_calls()}), flush=True)

@@ -65,24 +65,50 @@ benchmark's full width and checks them:
                 `bundle_adjust_cg` was never called, if no feature slot was
                 evicted, unless K1 launched once per frame and K2 at least
                 twice in every track call; reports ATE, fps, prewarm
-                seconds, each Sim3's seconds and the closure stages.
+                seconds, each Sim3's seconds and the closure stages;
+ 11. cli      — the port's CLI as a user runs it: the long run's course
+                (seed 19, 0.05 rad/frame) rendered on the card for
+                CLI_FRAMES frames, written as a TUM directory by
+                `render.write_tum` (8-bit PNGs, groundtruth, calib) and
+                decoded back by `tum.load(...).load_images_batch` (must equal
+                the rendered uint8 frames bit for bit); then `python -m
+                monocular_slam_tpu_torch.run --dataset <dir> --loop-closure
+                --vocab default --verbose` as a subprocess at the CLI's
+                default width (1000 features, max_frames 256, max_points
+                30000): exit code 0, tracked >= 95%, ATE <= 5 cm, a
+                closure with i - j >= 40, the summary's ATE equal to
+                `eval.compare` of trajectory.txt
+                against groundtruth.txt to 1e-5 m, map.ply readable, K1 one
+                launch per frame and K2 at least twice per track call
+                (the CLI's own counts). Then the first KITTI_FRAMES frames
+                in KITTI layout through `run.main` in-process (tracked >=
+                KITTI_MIN_TRACKED) and the synthetic feature route at the
+                CLI's defaults (finite ATE).
 
 Every phase raises on failure. Kernel launch counts are set to 0 just
 before each path is driven and read just after (in `long`, after the
-prewarm); the kernels JSON reports the session's measured run. The second-to-last line is
+prewarm; in `cli`, the CLI subprocess counts its main loop); the kernels
+JSON reports the session's measured run under `launches` and the CLI's
+under `launches_cli`. The second-to-last line is
 the kernels JSON, the last line `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import io
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -114,6 +140,14 @@ SCALE_BA = (1000, 100_000, 1500)  # cameras, points, observations per camera
 SCALE_ITERS = 10
 CG_VS_DENSE_FRAC = (0.1, 0.25)  # CG vs dense route on the loop state: poses, 99% of points
 LONG_FRAMES = 400
+# the CLI phase: the long run's orbit through files, the decoder and the CLI
+CLI_FRAMES = 200
+CLI_MIN_TRACKED = 190
+CLI_MAX_ATE_M = 0.05
+CLI_TIMEOUT_S = 480
+KITTI_FRAMES = 40
+KITTI_MIN_TRACKED = 38
+ROOT = Path(__file__).resolve().parent
 
 
 def log(msg: str) -> None:
@@ -747,8 +781,9 @@ def _state_diff(a, b, ref) -> dict:
 
 def _cg_vs_dense(sess, closure) -> dict:
     """Both routes of global BA and of the pose-graph correction on the loop
-    phase's final state (F = 128, where both run): `_gba_impl` with the dense
-    and the CG solver after a 1 cm perturbation of the keyframes, and
+    phase's final state (F = 128, where both run): `_gba_impl` with the loop
+    closer's dense and CG solvers (`global_ba_solver`) after a 1 cm
+    perturbation of the keyframes, and
     `correct` of the first closure under a perturbed Sim3 with keyframe
     buckets of 128 (dense) and 256 (CG). Per pair: the routes' difference,
     how far the dense route moved the state, each solve's chi2 (initial,
@@ -756,8 +791,7 @@ def _cg_vs_dense(sess, closure) -> dict:
     import dataclasses
 
     from monocular_slam_tpu_torch.geometry import sim3
-    from monocular_slam_tpu_torch.optim import ba as ba_mod
-    from monocular_slam_tpu_torch.optim import cg_ba, pose_graph
+    from monocular_slam_tpu_torch.optim import pose_graph
     from monocular_slam_tpu_torch.slam.loop_closer import LoopCloser
 
     lc, state = sess.loop_closer, sess.state
@@ -771,7 +805,6 @@ def _cg_vs_dense(sess, closure) -> dict:
     g = torch.Generator(device=dev).manual_seed(3)
     poses[kfs[1:], :, 3] += 0.01 * torch.randn((len(kfs) - 1, 3), generator=g, device=dev)
     st = state._replace(poses=poses)
-    n = lc.lc.global_ba_iters
     chi2 = {}
 
     def keep(name, fn):
@@ -795,10 +828,9 @@ def _cg_vs_dense(sess, closure) -> dict:
     try:
         with torch.inference_mode():
             dense, t_d, _ = _timed_solve(lambda: lc._gba_impl(
-                st, pad, len(kfs), keep("ba_dense", lambda pr: ba_mod.bundle_adjust(pr, n_iters=n))))
+                st, pad, len(kfs), keep("ba_dense", lc.global_ba_solver(cg=False))))
             cg, t_c, _ = _timed_solve(lambda: lc._gba_impl(
-                st, pad, len(kfs),
-                keep("ba_cg", lambda pr: cg_ba.bundle_adjust_cg(pr, n_iters=n, max_cg_iters=50))))
+                st, pad, len(kfs), keep("ba_cg", lc.global_ba_solver(cg=True))))
             out["global_ba"] = {"keyframes": len(kfs),
                                 **row(dense, cg, st, t_d, t_c, ("ba_dense", "ba_cg"))}
             i, j = closure
@@ -823,9 +855,9 @@ def _cg_vs_dense(sess, closure) -> dict:
     with torch.inference_mode():
         out["device_ops_per_call"] = {
             "global_ba_dense": device_ops(lambda: lc._gba_impl(
-                st, pad, len(kfs), lambda pr: ba_mod.bundle_adjust(pr, n_iters=n))),
+                st, pad, len(kfs), lc.global_ba_solver(cg=False))),
             "global_ba_cg": device_ops(lambda: lc._gba_impl(
-                st, pad, len(kfs), lambda pr: cg_ba.bundle_adjust_cg(pr, n_iters=n, max_cg_iters=50))),
+                st, pad, len(kfs), lc.global_ba_solver(cg=True))),
             **{f"correct_{name}": device_ops(lambda c=c: c.correct(state, i, j, S,
                                                                   keyframes=list(sess._keyframes)))
                for name, c in closers.items()},
@@ -1039,6 +1071,154 @@ def phase_long() -> dict:
     return out
 
 
+def _cli_json(lines, prefix=None):
+    """The JSON object on the last line (or on the line after `prefix`)."""
+    if prefix is None:
+        return json.loads(lines[-1])
+    return json.loads(next(x for x in lines if x.startswith(prefix))[len(prefix):])
+
+
+def _run_main_inprocess(argv) -> tuple[dict, list]:
+    """`run.main(argv)` in this process; returns (summary, stdout lines)."""
+    from monocular_slam_tpu_torch import run
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run.main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    if rc != 0:
+        raise AssertionError(f"run.main({argv}) returned {rc}")
+    return _cli_json(lines), lines
+
+
+def _write_kitti(root: str, imgs_u8: np.ndarray, poses: np.ndarray, k: np.ndarray) -> None:
+    """KITTI odometry layout: sequences/00/image_0/%06d.png, times.txt,
+    calib.txt (P0), poses/00.txt (camera-to-world rows)."""
+    from monocular_slam_tpu_torch import native
+
+    seq = os.path.join(root, "sequences", "00")
+    os.makedirs(os.path.join(seq, "image_0"))
+    os.makedirs(os.path.join(root, "poses"))
+    for i, img in enumerate(imgs_u8):
+        native.write_png(os.path.join(seq, "image_0", f"{i:06d}.png"), img)
+    np.savetxt(os.path.join(seq, "times.txt"), np.arange(len(imgs_u8)) / 30.0)
+    P = np.array([[k[0], 0, k[2], 0], [0, k[1], k[3], 0], [0, 0, 1, 0]])
+    with open(os.path.join(seq, "calib.txt"), "w") as f:
+        f.write("P0: " + " ".join(f"{v:.12e}" for v in P.ravel()) + "\n")
+    R, t = poses[:, :, :3].astype(np.float64), poses[:, :, 3].astype(np.float64)
+    c2w = np.concatenate([R.transpose(0, 2, 1), -np.einsum("fji,fj->fi", R, t)[..., None]], -1)
+    np.savetxt(os.path.join(root, "poses", "00.txt"), c2w.reshape(len(imgs_u8), 12))
+
+
+def cli_course(work: str) -> dict:
+    """The CLI phase's course: rendered on the card, written as a TUM
+    directory under `work`, decoded back and checked against the rendered
+    uint8 frames bit for bit."""
+    from monocular_slam_tpu_torch.datasets import render, tum
+
+    t0 = time.perf_counter()
+    imgs, poses_gt, k = render.render_sequence(seed=19, n_frames=CLI_FRAMES, wh=WH,
+                                               ang_step=0.05, device="cuda")
+    u8 = imgs.to(torch.uint8).cpu().numpy()
+    del imgs
+    render_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    root = render.write_tum(os.path.join(work, "tum"), u8, poses_gt, k)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq = tum.load(root)
+    dec = seq.load_images_batch(range(len(seq.frames)))
+    decode_s = time.perf_counter() - t0
+    if len(dec) != CLI_FRAMES or not all(np.array_equal(d, u) for d, u in zip(dec, u8)):
+        raise AssertionError("cli: decoded frames differ from the rendered uint8 frames")
+    log(f"[cli] rendered {CLI_FRAMES} frames on the card in {render_s:.2f} s, wrote the TUM "
+        f"directory in {write_s:.2f} s, decoded it in {decode_s:.3f} s: equal bit for bit")
+    return {"root": root, "u8": u8, "poses_gt": poses_gt, "k": k, "render_s": render_s,
+            "write_s": write_s, "decode_s": decode_s}
+
+
+def cli_args(root: str, out_dir: str) -> list:
+    return ["--dataset", root, "--start", "0", "--end", str(CLI_FRAMES), "--step", "1",
+            "--loop-closure", "--vocab", "default", "--out", out_dir]
+
+
+def phase_cli() -> dict:
+    from monocular_slam_tpu_torch.eval import compare
+    from monocular_slam_tpu_torch.io import ply, trajectory
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        course = cli_course(work)
+        root, u8, poses_gt, k = course["root"], course["u8"], course["poses_gt"], course["k"]
+        out_dir = os.path.join(work, "out")
+        cmd = [sys.executable, "-m", "monocular_slam_tpu_torch.run",
+               *cli_args(root, out_dir), "--verbose"]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [str(ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
+                              env=env, cwd=str(ROOT))
+        proc_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"cli: the CLI exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        lines = proc.stdout.strip().splitlines()
+        summary = _cli_json(lines)
+        counts = _cli_json(lines, "[run] kernel launches ")
+        plot = next((x for x in lines if x.startswith("[run] plot")), "plot written")
+        ts, poses = trajectory.read_tum(os.path.join(out_dir, "trajectory.txt"))
+        pts = ply.read_ply_points(os.path.join(out_dir, "map.ply"))
+        cmp = compare.compare(os.path.join(out_dir, "trajectory.txt"),
+                              os.path.join(root, "groundtruth.txt"))
+        closures = summary.get("loop_closures", [])
+        out = {"summary": summary, "kernel_launches": counts, "subprocess_s": proc_s,
+               "trajectory_rows": len(ts), "map_ply_points": int(pts.shape[0]),
+               "compare": cmp, "plot": plot,
+               **{n: course[n] for n in ("render_s", "write_s", "decode_s")}}
+        log("[cli] " + json.dumps(out))
+        log(f"[cli] CLI on {CLI_FRAMES} frames: tracked {summary['tracked']}, ATE "
+            f"{summary['ate_rmse'] * 100:.3f} cm (eval.compare {cmp['ate_rmse'] * 100:.5f} cm), "
+            f"closures {closures}, {summary['fps_incl_compile']} fps, prewarm "
+            f"{summary['prewarm_s']} s, wall {summary['wall_s']} s ({proc_s:.1f} s for the "
+            f"process), K1 {counts['fast_corner_maps_levels']}, K2 {counts['hamming_top2']} in "
+            f"{counts['track_calls']} track calls; {plot}")
+        if summary["tracked"] < CLI_MIN_TRACKED:
+            raise AssertionError(f"cli: tracked {summary['tracked']} < {CLI_MIN_TRACKED}")
+        if not summary["ate_rmse"] <= CLI_MAX_ATE_M:
+            raise AssertionError(f"cli: ATE {summary['ate_rmse']} m > {CLI_MAX_ATE_M} m")
+        if not abs(cmp["ate_rmse"] - summary["ate_rmse"]) <= 1e-5:
+            raise AssertionError(f"cli: eval.compare ATE {cmp['ate_rmse']} != summary "
+                                 f"{summary['ate_rmse']}")
+        if len(ts) != summary["tracked"] or pts.shape[0] != summary["map_points"]:
+            raise AssertionError(f"cli: {len(ts)} trajectory rows, {pts.shape[0]} PLY points "
+                                 f"for {summary}")
+        if not any(i - j >= 40 for i, j in closures):
+            raise AssertionError(f"cli: no closure with i - j >= 40: {closures}")
+        if counts["fast_corner_maps_levels"] != CLI_FRAMES:
+            raise AssertionError(f"cli: K1 launched {counts['fast_corner_maps_levels']} times "
+                                 f"for {CLI_FRAMES} frames")
+        if counts["track_calls"] < CLI_MIN_TRACKED - 2 or counts["k2_per_track_min"] < 2:
+            raise AssertionError(f"cli: K2: {counts}")
+
+        kitti_root = os.path.join(work, "kitti")
+        _write_kitti(kitti_root, u8[:KITTI_FRAMES], poses_gt[:KITTI_FRAMES], k)
+        kitti, _ = _run_main_inprocess(["--dataset", kitti_root, "--end", str(KITTI_FRAMES),
+                                        "--step", "1", "--out", os.path.join(work, "kitti_out")])
+        log("[cli] KITTI layout " + json.dumps(kitti))
+        if kitti["tracked"] < KITTI_MIN_TRACKED:
+            raise AssertionError(f"cli: KITTI tracked {kitti['tracked']} < {KITTI_MIN_TRACKED}")
+
+        synth, _ = _run_main_inprocess(["--dataset", "synthetic",
+                                        "--out", os.path.join(work, "synth_out")])
+        log("[cli] synthetic " + json.dumps(synth))
+        if not np.isfinite(synth.get("ate_rmse", np.nan)) or "tracked" not in synth:
+            raise AssertionError(f"cli: synthetic route reported {synth}")
+        out |= {"kitti": kitti, "synthetic": synth}
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     t0 = time.perf_counter()
     phase_device()
@@ -1049,6 +1229,7 @@ def main() -> int:
     loop, loop_sess = phase_loop()
     phase_scale(loop_sess, loop)
     phase_long()
+    cli = phase_cli()
     k1 = res["k1"]
     win = k2[WINDOW]
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; loop K1 launches "
@@ -1056,10 +1237,12 @@ def main() -> int:
     log(json.dumps({"kernels": [
         {"name": "fast_corner_maps_levels", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": res["k1_launches"],
+         "launches_cli": cli["kernel_launches"]["fast_corner_maps_levels"],
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None},
         {"name": "hamming_top2", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": res["k2_launches"],
+         "launches_cli": cli["kernel_launches"]["hamming_top2"],
          "max_abs_err": max(r["max_abs_err"] for r in k2.values()), "ms": win["ms"],
          "plain_ms": win["plain_ms"], "bound_ms": win["bound_ms"], "bound_by": win["bound_by"],
          "library_ms": None},

@@ -6,24 +6,36 @@ textured planes (walls, floor, ceiling, central pillar), the
 `arc_trajectory(radius=1.8, ang_step=0.06)` orbit and the `SYNTH_K`
 pinhole. Textures are four octaves of uniform noise, cubic-upsampled and
 mixed 0.35/0.30/0.20/0.15, normalized and pushed through a sigmoid around
-the median, as the reference builds them; the noise comes from a seeded
-`numpy.random.RandomState`, so the pixels differ from the reference's
-threefry-drawn textures while the scene's character is the same.
-`render_frame` is tensor math on whatever device its inputs live on.
+the median, as the reference builds them. The noise is drawn with
+`utils/prng.py`, the port's copy of `jax.random`'s threefry: `seed` means
+the reference's `jax.random.PRNGKey(seed)`, split over the planes as it
+splits it, so a course here is the reference's course, pixel for pixel up
+to float rounding. `render_frame` is tensor math on whatever device its
+inputs live on.
+
+`export_tum` writes a rendered course as a TUM RGB-D directory (8-bit grey
+PNGs through `native.write_png`, `rgb.txt`, `groundtruth.txt`, `calib.txt`,
+`VERSION`), the layout `datasets/tum.load` reads.
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from monocular_slam_tpu_torch import native
 from monocular_slam_tpu_torch.datasets.synthetic import arc_trajectory
 from monocular_slam_tpu_torch.ops.pyramid import cubic_upsample
+from monocular_slam_tpu_torch.utils import prng
 from monocular_slam_tpu_torch.utils.device import resolve_device
 
 SYNTH_K = np.array([517.3, 516.5, 318.6, 255.3])
+
+# the reference's RENDER_VERSION: cached on-disk courses carry it
+RENDER_VERSION = 2
 
 
 class Planes(NamedTuple):
@@ -34,11 +46,13 @@ class Planes(NamedTuple):
     tex_id: torch.Tensor  # (P,) int64
 
 
-def texture(rng: np.random.RandomState, size: int = 2048, device=None) -> torch.Tensor:
-    """(size, size) high-contrast multi-scale noise texture in [0, 255]."""
+def texture(key: np.ndarray, size: int = 2048, device=None) -> torch.Tensor:
+    """(size, size) high-contrast multi-scale noise texture in [0, 255] from
+    a threefry key, the reference's `_texture(key, size)`."""
     img = torch.zeros((size, size), dtype=torch.float32, device=device)
-    for w, n in ((0.35, 32), (0.30, 96), (0.20, 256), (0.15, 512)):
-        noise = torch.as_tensor(rng.uniform(size=(n, n)).astype(np.float32), device=device)
+    octaves = ((0.35, 32), (0.30, 96), (0.20, 256), (0.15, 512))
+    for kk, (w, n) in zip(prng.split(key, 4), octaves):
+        noise = torch.as_tensor(prng.uniform(kk, (n, n)), device=device)
         img = img + w * cubic_upsample(noise, (size, size))
     img = (img - img.min()) / (img.max() - img.min())
     flat = img.reshape(-1)
@@ -116,19 +130,68 @@ def render_frame(pose: torch.Tensor, k: torch.Tensor, wh, planes: Planes,
 
 def render_sequence(seed: int = 11, n_frames: int = 60, wh=(640, 480), radius: float = 1.8,
                     ang_step: float = 0.06, tex_size: int = 2048, device=None):
-    """The rendered orbit inside the box room. Returns (images (F, H, W)
-    float32 tensor on `device` (default: the card), quantized to integers
-    in [0, 255] as the reference's PNG export stores them; poses_gt
-    (F, 3, 4) numpy world->camera; k (4,) numpy)."""
+    """The rendered orbit inside the box room, textured from
+    `PRNGKey(seed)`. Returns (images (F, H, W) float32 tensor on `device`
+    (default: the card), quantized to integers in [0, 255] as the
+    reference's PNG export stores them; poses_gt (F, 3, 4) numpy
+    world->camera; k (4,) numpy)."""
     device = resolve_device(device)
     W, H = wh
     k = SYNTH_K * np.array([W / 640.0, H / 480.0, W / 640.0, H / 480.0])
     planes = box_room(device=device)
-    rng = np.random.RandomState(seed)
-    textures = torch.stack([texture(rng, tex_size, device) for _ in range(planes.origin.shape[0])])
+    keys = prng.split(prng.PRNGKey(seed), planes.origin.shape[0])
+    textures = torch.stack([texture(kk, tex_size, device) for kk in keys])
     poses = arc_trajectory(n_frames, radius=radius, ang_step=ang_step)
     kt = torch.as_tensor(k, dtype=torch.float32, device=device)
     pt = torch.as_tensor(poses, device=device)
     imgs = torch.stack([render_frame(pt[i], kt, wh, planes, textures) for i in range(n_frames)])
     imgs = torch.clamp(imgs, 0.0, 255.0).to(torch.uint8).to(torch.float32)
     return imgs, poses, k
+
+
+def _rt_to_tum_line(ts: float, pose: np.ndarray) -> str:
+    """world->camera (3, 4) -> TUM groundtruth line (camera-to-world)."""
+    from scipy.spatial.transform import Rotation
+
+    R = pose[:3, :3]
+    C = -R.T @ pose[:3, 3]
+    q = Rotation.from_matrix(R.T).as_quat()  # (qx, qy, qz, qw)
+    vals = [C[0], C[1], C[2], q[0], q[1], q[2], q[3]]
+    return f"{ts:.6f} " + " ".join(f"{v:.6f}" for v in vals)
+
+
+def write_tum(root: str, imgs, poses: np.ndarray, k: np.ndarray, fps: float = 30.0) -> str:
+    """Write rendered frames ((F, H, W) in [0, 255], tensor or numpy) and
+    their world->camera poses as a TUM RGB-D directory; returns `root`."""
+    imgs = imgs.detach().cpu().numpy() if torch.is_tensor(imgs) else np.asarray(imgs)
+    imgs = np.clip(imgs, 0, 255).astype(np.uint8)
+    H, W = imgs.shape[1:]
+    os.makedirs(os.path.join(root, "rgb"), exist_ok=True)
+    rgb_lines = ["# color images", "# timestamp filename"]
+    gt_lines = ["# ground truth trajectory", "# timestamp tx ty tz qx qy qz qw"]
+    for i in range(len(imgs)):
+        ts = i / fps
+        name = f"rgb/{ts:.6f}.png"
+        native.write_png(os.path.join(root, name), imgs[i])
+        rgb_lines.append(f"{ts:.6f} {name}")
+        gt_lines.append(_rt_to_tum_line(ts, poses[i]))
+    with open(os.path.join(root, "rgb.txt"), "w") as f:
+        f.write("\n".join(rgb_lines) + "\n")
+    with open(os.path.join(root, "VERSION"), "w") as f:
+        f.write(f"{RENDER_VERSION}\n")
+    with open(os.path.join(root, "calib.txt"), "w") as f:
+        f.write(" ".join(f"{v:.6f}" for v in k) + f" {W} {H}\n")
+    with open(os.path.join(root, "groundtruth.txt"), "w") as f:
+        f.write("\n".join(gt_lines) + "\n")
+    return root
+
+
+def export_tum(root: str, seed: int = 0, n_frames: int = 60, wh=(640, 480), fps: float = 30.0,
+               device=None, **render_kwargs) -> str:
+    """Render a course (`render_sequence(seed, ...)` on `device`, default
+    the card) and write it as a TUM RGB-D directory (rgb/*.png, rgb.txt,
+    groundtruth.txt, calib.txt, VERSION), as the reference's `export_tum`
+    does with `PRNGKey(seed)`. Returns `root`."""
+    imgs, poses, k = render_sequence(seed=seed, n_frames=n_frames, wh=wh, device=device,
+                                     **render_kwargs)
+    return write_tum(root, imgs, poses, k, fps)

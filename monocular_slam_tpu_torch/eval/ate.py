@@ -1,4 +1,4 @@
-"""Absolute Trajectory Error — a numpy copy of the ATE part of
+"""Absolute Trajectory Error / Relative Pose Error — a numpy copy of
 `monocular_slam_tpu/eval/ate.py` (which is numpy already; the copy keeps the
 port free of the JAX package).
 
@@ -74,3 +74,18 @@ def ate(
         errors=err,
     )
 
+
+
+def rpe(
+    poses_est: np.ndarray,
+    poses_gt: np.ndarray,
+    delta: int = 1,
+) -> float:
+    """RMSE of relative translation error over frame pairs (i, i+delta),
+    after aligning global scale from ATE."""
+    c_est = camera_centers(poses_est)
+    c_gt = camera_centers(poses_gt)
+    s, _, _ = umeyama_sim3(c_est, c_gt)
+    d_est = np.linalg.norm(np.diff(c_est[::delta], axis=0), axis=1) * s
+    d_gt = np.linalg.norm(np.diff(c_gt[::delta], axis=0), axis=1)
+    return float(np.sqrt(((d_est - d_gt) ** 2).mean()))

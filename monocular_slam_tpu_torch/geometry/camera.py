@@ -37,6 +37,13 @@ def project(k: torch.Tensor, X_cam: torch.Tensor) -> torch.Tensor:
     return torch.stack([u, v], dim=-1)
 
 
+def backproject(k: torch.Tensor, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+    """Pixels + depth -> (..., 3) camera-frame points."""
+    x = (uv[..., 0] - k[..., 2]) / k[..., 0] * depth
+    y = (uv[..., 1] - k[..., 3]) / k[..., 1] * depth
+    return torch.stack([x, y, depth], dim=-1)
+
+
 def normalize_points(k: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     x = (uv[..., 0] - k[..., 2]) / k[..., 0]
     y = (uv[..., 1] - k[..., 3]) / k[..., 1]

@@ -87,13 +87,16 @@ def level_scale(level) -> float:
 
 
 def cubic_upsample(img: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
-    """`jax.image.resize(..., "cubic")` for upsampling (Keys kernel, a=-0.5)
-    as two weight-matrix products; used by the scene renderer."""
+    """`jax.image.resize(..., "cubic")` (Keys kernel, a=-0.5) as two
+    weight-matrix products; a shrinking axis widens the kernel by the
+    scale, as `jax.image.resize`'s antialiasing does. Used by the scene
+    renderer."""
     def wmat(m: int, n: int) -> torch.Tensor:
         d = torch.float64
         inv_scale = m / n
         sample_f = (torch.arange(n, dtype=d, device=img.device) + 0.5) * inv_scale - 0.5
         x = (sample_f[None, :] - torch.arange(m, dtype=d, device=img.device)[:, None]).abs()
+        x = x / max(inv_scale, 1.0)
         out = ((1.5 * x - 2.5) * x) * x + 1.0
         out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
         out = torch.where(x >= 2.0, 0.0, out)

@@ -15,7 +15,9 @@ every remembered loop edge (`correct`), the global BA, and the chi2
 quality guard. Those read a few scalars on the host, at closure rate.
 Keyframe graphs past 128 vertices take the matrix-free
 `pose_graph.optimize_cg`, and global BA past F*P = 4e6 takes
-`cg_ba.bundle_adjust_cg`, as in the reference.
+`cg_ba.bundle_adjust_cg`, as in the reference; they run
+`POSE_GRAPH_CG_ITERS` and `GLOBAL_BA_CG_ITERS` PCG steps per LM iteration
+(the reference 100 and 50).
 
 The database row insert updates `db` in place (the reference returns a new
 array); the session owns the one database tensor.
@@ -44,6 +46,14 @@ from monocular_slam_tpu_torch.slam.config import SlamConfig
 from monocular_slam_tpu_torch.slam.state import SlamState
 from monocular_slam_tpu_torch.utils.device import resolve_device
 from monocular_slam_tpu_torch.utils.scatter import mark, segment_min, set_last, take
+
+# PCG steps per LM iteration of the CG routes. The reference runs 50 (global
+# BA) and 100 (pose graph). On its own rendered revisit course
+# (chip_smoke.py's loop state, perturbed) those counts end 10% and 13% of
+# the dense route's correction away from it; 100 and 200 steps end 0.4%
+# and 1.4% away (chip_profile.py cgdense, H100), so the port runs these.
+GLOBAL_BA_CG_ITERS = 100
+POSE_GRAPH_CG_ITERS = 200
 
 
 @dataclass
@@ -424,7 +434,7 @@ class LoopCloser:
         else:
             # the dense (7K)^2 Cholesky per LM step gives way to matrix-free
             # PCG over the same edge blocks
-            res = pose_graph.optimize_cg(g, n_iters=20, max_cg_iters=100,
+            res = pose_graph.optimize_cg(g, n_iters=20, max_cg_iters=POSE_GRAPH_CG_ITERS,
                                          huber_delta=self.lc.pg_huber_delta)
         ok = torch.isfinite(res.vertices).all()
 
@@ -461,11 +471,15 @@ class LoopCloser:
         (F*6, P*3) cross terms outgrow the reference's device) on the
         matrix-free CG engine."""
         F, P = state.poses.shape[0], state.points.shape[0]
+        return self._gba_impl(state, kf_pad, K, self.global_ba_solver(cg=F * P > 4_000_000))
+
+    def global_ba_solver(self, cg: bool):
+        """`solver(prob) -> BAResult` of global BA: the dense Schur LM, or
+        with `cg` the matrix-free PCG LM."""
         n = self.lc.global_ba_iters
-        if F * P > 4_000_000:
-            return self._gba_impl(state, kf_pad, K,
-                                  lambda pr: cg_ba.bundle_adjust_cg(pr, n_iters=n, max_cg_iters=50))
-        return self._gba_impl(state, kf_pad, K, lambda pr: ba_mod.bundle_adjust(pr, n_iters=n))
+        if cg:
+            return lambda pr: cg_ba.bundle_adjust_cg(pr, n_iters=n, max_cg_iters=GLOBAL_BA_CG_ITERS)
+        return lambda pr: ba_mod.bundle_adjust(pr, n_iters=n)
 
     def _gba_impl(self, state: SlamState, kf_pad, K: int, solver) -> SlamState:
         """Keyframe-only global BA by `solver(prob) -> BAResult` (non-keyframe

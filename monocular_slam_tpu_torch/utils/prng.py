@@ -1,0 +1,161 @@
+"""`jax.random`'s threefry generator in numpy, bit for bit.
+
+The JAX package draws its synthetic data (the renderer's textures, the
+feature sequences) from `jax.random` keys. This module holds the same rules
+so that the port makes the same data from the same seed without JAX:
+
+- a key is a (2,) uint32 array; `PRNGKey(seed)` is `[0, seed]` for a
+  32-bit seed (`threefry_seed`);
+- `threefry2x32` is the 20-round Threefry-2x32 hash with rotations
+  (13, 15, 26, 6) and (17, 29, 16, 24);
+- `split` and 32-bit `random_bits` follow the partitionable layout (the
+  default of `jax_threefry_partitionable`): the counters are a uint64 iota
+  over the output shape split into high and low words, `split` stacks the
+  hash's two words, and 32-bit bits are their xor; 64-bit bits are
+  `hi << 32 | lo`;
+- `fold_in(key, d)` hashes the counter pair `[0, d]`;
+- `uniform` fills the mantissa of a float in [1, 2) with the top bits,
+  subtracts 1, scales, and clamps at `minval`; `normal` (float32) is
+  `sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))`; `bernoulli` is
+  `uniform < p`; `randint` draws two bit arrays from a split key and
+  reduces them with the span multiplier.
+
+The float dtype defaults to float32 and the int dtype to int32, JAX's
+defaults without `jax_enable_x64`. Everything is numpy uint32 arithmetic on
+the host (torch's uint32 support is thin); callers move results to a device.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_U32 = np.uint32
+
+
+def _rotl(x: np.ndarray, r: int) -> np.ndarray:
+    return (x << _U32(r)) | (x >> _U32(32 - r))
+
+
+def threefry2x32(k1, k2, x1: np.ndarray, x2: np.ndarray):
+    """The Threefry-2x32 hash (20 rounds) of counter pairs (x1, x2) under
+    the key (k1, k2); all uint32, broadcast together."""
+    k1, k2 = _U32(k1), _U32(k2)
+    ks = (k1, k2, k1 ^ k2 ^ _U32(0x1BD11BDA))
+    with np.errstate(over="ignore"):
+        x1 = np.asarray(x1, _U32) + ks[0]
+        x2 = np.asarray(x2, _U32) + ks[1]
+        for block in range(5):
+            for r in _ROT[block % 2]:
+                x1 = x1 + x2
+                x2 = _rotl(x2, r) ^ x1
+            x1 = x1 + ks[(block + 1) % 3]
+            x2 = x2 + ks[(block + 2) % 3] + _U32(block + 1)
+    return x1, x2
+
+
+def PRNGKey(seed: int) -> np.ndarray:
+    """The raw key of `jax.random.PRNGKey(seed)`: the seed's 64 bits as
+    (high, low) uint32 words."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return np.array([seed >> 32, seed & 0xFFFFFFFF], _U32)
+
+
+def _iota_2x32(shape) -> tuple[np.ndarray, np.ndarray]:
+    n = math.prod(shape)
+    idx = np.arange(n, dtype=np.uint64).reshape(shape)
+    return (idx >> np.uint64(32)).astype(_U32), (idx & np.uint64(0xFFFFFFFF)).astype(_U32)
+
+
+def _hash_iota(key: np.ndarray, shape):
+    c1, c2 = _iota_2x32(tuple(shape))
+    return threefry2x32(key[0], key[1], c1, c2)
+
+
+def split(key: np.ndarray, num: int | tuple = 2) -> np.ndarray:
+    """`jax.random.split`: (num, 2) uint32 keys (or (*num, 2))."""
+    shape = (num,) if isinstance(num, int) else tuple(num)
+    b1, b2 = _hash_iota(np.asarray(key, _U32), shape)
+    return np.stack([b1, b2], axis=-1)
+
+
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """`jax.random.fold_in`: the key hashed with the counter pair [0, data]."""
+    key = np.asarray(key, _U32)
+    o1, o2 = threefry2x32(key[0], key[1], np.array([0], _U32),
+                          np.array([int(data) & 0xFFFFFFFF], _U32))
+    return np.array([o1[0], o2[0]], _U32)
+
+
+def random_bits(key: np.ndarray, bit_width: int = 32, shape=()) -> np.ndarray:
+    """`jax.random.bits`: unsigned integers of `bit_width` (8, 16, 32 or 64)."""
+    b1, b2 = _hash_iota(np.asarray(key, _U32), tuple(shape))
+    if bit_width == 64:
+        return (b1.astype(np.uint64) << np.uint64(32)) | b2.astype(np.uint64)
+    if bit_width not in (8, 16, 32):
+        raise ValueError(f"bit_width must be 8, 16, 32 or 64, got {bit_width}")
+    return (b1 ^ b2).astype(np.dtype(f"uint{bit_width}"))
+
+
+def uniform(key: np.ndarray, shape=(), dtype=np.float32, minval=0.0, maxval=1.0) -> np.ndarray:
+    """`jax.random.uniform` in [minval, maxval) for float32 or float64."""
+    dtype = np.dtype(dtype)
+    info = np.finfo(dtype)
+    nbits, nmant = info.bits, info.nmant
+    uint = np.dtype(f"uint{nbits}")
+    bits = random_bits(key, nbits, shape)
+    one = np.array(1.0, dtype).view(uint)
+    floats = ((bits >> uint.type(nbits - nmant)) | one).view(dtype) - dtype.type(1.0)
+    lo, hi = np.asarray(minval, dtype), np.asarray(maxval, dtype)
+    return np.maximum(lo, floats * (hi - lo) + lo).astype(dtype)
+
+
+# XLA's single-precision erf_inv (Giles' polynomial in w = -log1p(-x^2))
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv32(x: np.ndarray) -> np.ndarray:
+    """float32 inverse error function, the polynomial XLA evaluates."""
+    x = np.asarray(x, np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        w = -np.log1p(-x * x)
+        lt = w < np.float32(5.0)
+        w = np.where(lt, w - np.float32(2.5), np.sqrt(w) - np.float32(3.0)).astype(np.float32)
+        p = np.where(lt, np.float32(_ERFINV_LT5[0]), np.float32(_ERFINV_GE5[0]))
+        for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+            p = (np.where(lt, np.float32(a), np.float32(b)) + p * w).astype(np.float32)
+        out = p * x
+    return np.where(np.abs(x) == 1, np.copysign(np.float32(np.inf), x), out).astype(np.float32)
+
+
+def normal(key: np.ndarray, shape=()) -> np.ndarray:
+    """`jax.random.normal` in float32, through XLA's erf_inv polynomial."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = uniform(key, shape, np.float32, lo, 1.0)
+    return (np.float32(np.sqrt(2)) * erfinv32(u)).astype(np.float32)
+
+
+def bernoulli(key: np.ndarray, p: float = 0.5, shape=(), dtype=np.float32) -> np.ndarray:
+    """`jax.random.bernoulli` (mode 'low'): uniform of p's dtype below p."""
+    return uniform(key, shape, dtype) < np.asarray(p, dtype)
+
+
+def randint(key: np.ndarray, shape, minval: int, maxval: int, dtype=np.int32) -> np.ndarray:
+    """`jax.random.randint` in [minval, maxval) for int32 or int64 (scalar
+    bounds inside the dtype's range)."""
+    dtype = np.dtype(dtype)
+    nbits = dtype.itemsize * 8
+    uint = np.dtype(f"uint{nbits}")
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, nbits, shape), random_bits(k2, nbits, shape)
+    span = uint.type(max(int(maxval) - int(minval), 1))
+    with np.errstate(over="ignore"):
+        mult = uint.type(2 ** (nbits // 2)) % span
+        mult = (mult * mult) % span
+        off = ((higher % span) * mult + (lower % span)) % span
+        return (dtype.type(minval) + off.astype(dtype)).astype(dtype)

@@ -348,3 +348,34 @@ def test_prewarm_and_buffer_on_cuda(cuda):
         sess.add_frame_from_buffer(buf, i, k, i / 30.0)
     poses, valid, _ = sess.trajectory()
     assert valid.sum() >= 7 and np.isfinite(poses).all()
+
+
+def test_cli_on_cuda(cuda, tmp_path):
+    """The CLI on the card: a 12-frame 320x240 course exported by the port,
+    decoded natively, one K1 launch per frame and two K2 launches in every
+    track call; the files it writes read back."""
+    import contextlib
+    import io
+    import json
+
+    from monocular_slam_tpu_torch import run
+    from monocular_slam_tpu_torch.datasets import render
+    from monocular_slam_tpu_torch.io import ply, trajectory
+
+    root = render.export_tum(str(tmp_path / "course"), seed=3, n_frames=12, wh=(320, 240),
+                             device=cuda)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert run.main(["--dataset", root, "--end", "12", "--step", "1", "--features", "600",
+                         "--max-frames", "16", "--max-points", "4000", "--out",
+                         str(tmp_path / "out"), "--verbose"]) == 0
+    lines = buf.getvalue().strip().splitlines()
+    summary = json.loads(lines[-1])
+    counts = json.loads(next(x for x in lines if x.startswith("[run] kernel launches"))
+                        .split("launches ", 1)[1])
+    assert summary["device"].startswith("cuda") and summary["tracked"] >= 10
+    assert summary["ate_rmse"] < 0.04
+    assert counts["fast_corner_maps_levels"] == 12 and counts["k2_per_track_min"] >= 2
+    ts, poses = trajectory.read_tum(str(tmp_path / "out" / "trajectory.txt"))
+    assert len(ts) == summary["tracked"] and np.isfinite(poses).all()
+    assert ply.read_ply_points(str(tmp_path / "out" / "map.ply")).shape[0] == summary["map_points"]

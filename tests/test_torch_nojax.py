@@ -1,7 +1,8 @@
-"""The port runs without JAX: a fresh interpreter in which `import jax`
-fails imports every module of `monocular_slam_tpu_torch` and runs `extract`,
-a few session frames, and a prewarmed loop-closing session fed from a frame
-buffer on the CPU."""
+"""The port runs without JAX, PIL and matplotlib (the card's machine has
+none of them): a fresh interpreter in which importing any of them fails
+imports every module of `monocular_slam_tpu_torch` and runs `extract`, a few
+session frames, a prewarmed loop-closing session fed from a frame buffer,
+and the CLI on a course written by the port's own exporter, on the CPU."""
 
 import os
 import subprocess
@@ -14,6 +15,8 @@ SCRIPT = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
 sys.modules["monocular_slam_tpu"] = None
+sys.modules["PIL"] = None
+sys.modules["matplotlib"] = None
 import numpy as np, torch
 torch.set_num_threads(1)  # beside the suite's other worker processes
 import monocular_slam_tpu_torch as pkg
@@ -47,6 +50,23 @@ sess.flush()
 assert lc._db.shape == (4, 10**4) and sess.stats[-1].cand_j >= -1
 q = vocabulary.bow_vector(lc.voc, f.desc_pm1, f.valid)
 assert abs(float(q.sum()) - 1.0) < 1e-5
+# the CLI on an exported course: PNGs written and decoded natively, the
+# plot skipped for want of matplotlib
+import contextlib, io, json, os, tempfile
+from monocular_slam_tpu_torch import run
+root = render.export_tum(tempfile.mkdtemp(), seed=3, n_frames=3, wh=(320, 240), tex_size=512,
+                         device="cpu")
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    assert run.main(["--dataset", root, "--end", "3", "--step", "1", "--features", "300",
+                     "--max-frames", "16", "--max-points", "3000", "--out",
+                     os.path.join(root, "out"), "--device", "cpu"]) == 0
+out = buf.getvalue().splitlines()
+assert any(line.startswith("[run] plot skipped") for line in out), out
+summary = json.loads(out[-1])
+assert summary["frames"] == 3 and summary["tracked"] == 3 and "ate_rmse" in summary, summary
+assert os.path.exists(os.path.join(root, "out", "trajectory.txt"))
+assert not any(k.split(".")[0] in ("PIL", "matplotlib") for k, v in sys.modules.items() if v)
 print("modules", len(names))
 """
 
@@ -60,9 +80,11 @@ def test_port_imports_and_runs_without_jax():
 
 
 def test_port_sources_name_no_jax():
-    """No `import jax` and no import of the JAX package in the port's sources."""
+    """No `import jax`, no import of the JAX package and none of PIL in the
+    port's sources."""
     for path in (ROOT / "monocular_slam_tpu_torch").rglob("*.py"):
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
+        assert "import PIL" not in text and "from PIL" not in text, path
         assert "import monocular_slam_tpu\n" not in text, path
         assert "from monocular_slam_tpu." not in text and "from monocular_slam_tpu " not in text, path

@@ -216,8 +216,7 @@ def image_course():
     buffer and prewarm tests)."""
     from monocular_slam_tpu_torch.datasets import render
 
-    imgs, _, k = render.render_sequence(seed=2, n_frames=8, wh=(320, 240), tex_size=512,
-                                        device="cpu")
+    imgs, _, k = render.render_sequence(seed=2, n_frames=8, wh=(320, 240), device="cpu")
     cfg = SlamConfig(max_frames=16, max_points=2000, image_wh=(320, 240),
                      frontend=FrontendConfig(n_features=300))
     sess = _image_session(cfg)
