@@ -5,6 +5,9 @@
     python3 chip_profile.py long [traj.npz]   # benchmarks/long_run.py's 1000 frames, by stage
     python3 chip_profile.py cli      # the CLI on chip_smoke.py's cli course, by stage
     python3 chip_profile.py cgdense  # CG vs dense global BA on the loop state, by PCG steps
+    python3 chip_profile.py cgdense long  # CG vs dense at every CG closure of the 1000-frame long run
+    python3 chip_profile.py detsum [ROOT]  # the scale solvers and the session, package from ROOT
+    python3 chip_profile.py nccl     # host cost of one all-reduce at NCCL world size 1
     python3 chip_profile.py cgsteps  # chip_smoke.py's long phase at the reference's PCG steps and the port's
 
 `cgdense`: the loop course of `chip_smoke.py`, then global BA on its
@@ -13,6 +16,28 @@ steps against the dense route (the largest pose difference over the dense
 route's largest move, and the scale of a Sim(3) fit of the CG keyframe
 centres onto the dense ones), then the scale phase's `correct` comparison
 with the CG pose graph at 100, 200, 300 and 400 PCG steps.
+
+`cgdense long`: `chip_smoke.run_long` over the full 1000 frames, keeping
+the input of every call the loop closer routes to `pose_graph.optimize_cg`
+(K_pad > 128) and to `cg_ba.bundle_adjust_cg` (F*P > 4e6) and its result;
+then each input again through the dense route, `pose_graph.optimize` (the
+(7 K_pad)^2 Cholesky, same iterations and Huber delta) and
+`ba.bundle_adjust` (the dense Schur), and the two routes compared as the
+loop state's check does: the largest pose-entry difference over the dense
+route's largest pose move, and the 99th-percentile point difference over
+the dense route's 99th-percentile point move.
+
+`detsum [ROOT]`: the scale phase's two solvers (`chip_smoke.py`'s
+10,000-keyframe CG pose graph and 1.5M-edge CG BA, 10 LM iterations, the
+best of 3 calls after a warm-up) and the 60-frame session's fps over frames
+10-59, with `monocular_slam_tpu_torch` imported from ROOT (default: this
+checkout). Run it on two checkouts in one call to compare them on one card.
+
+`nccl`: a one-rank NCCL group in this process; 500 calls of
+`distributed.all_reduce` on a (1000, 6) float32 tensor, host seconds per
+call, on an idle card and queued behind a matmul chain of ~0.2 s (if a call
+returns before the chain ends, it does not wait for the card), and
+`torch.profiler`'s kernels and host events of 20 calls.
 
 `cgsteps`: `chip_smoke.run_long` (400 frames) twice in one process, the
 loop closer's CG routes at the reference's PCG step counts (50 for global
@@ -232,6 +257,227 @@ def cg_dense(smi: str) -> int:
     return 0
 
 
+def cg_dense_long(smi: str) -> int:
+    import chip_smoke as cs
+    from monocular_slam_tpu_torch.optim import ba, cg_ba, pose_graph
+
+    kept = {"optimize_cg": [], "bundle_adjust_cg": []}
+    plain = pose_graph.optimize_cg, cg_ba.bundle_adjust_cg
+
+    def keep(name, fn):
+        def solve(x, *a, **kw):
+            res = fn(x, *a, **kw)
+            kept[name].append((x, kw, res))
+            return res
+        return solve
+
+    pose_graph.optimize_cg = keep("optimize_cg", plain[0])
+    cg_ba.bundle_adjust_cg = keep("bundle_adjust_cg", plain[1])
+    try:
+        out, sess = cs.run_long(LONG_RUN_FRAMES)
+    finally:
+        pose_graph.optimize_cg, cg_ba.bundle_adjust_cg = plain
+    print(json.dumps({k: out[k] for k in ("frames", "tracked", "ate_m", "closures", "corrected")}),
+          flush=True)
+
+    def ratio(diff, moved):
+        return diff / moved if moved > 0 else float("inf")
+
+    rows = []
+    with torch.inference_mode():
+        for g, kw, res in kept["optimize_cg"]:
+            _sync()
+            t0 = time.perf_counter()
+            dense = pose_graph.optimize(g, n_iters=kw.get("n_iters", 20),
+                                        huber_delta=kw.get("huber_delta"))
+            _sync()
+            moved = (dense.vertices - g.vertices).abs().max().item()
+            diff = (res.vertices - dense.vertices).abs().max().item()
+            row = {"route": "pose_graph", "K_pad": int(g.vertices.shape[0]),
+                   "edges": int(g.valid.sum()), "pcg_steps": kw.get("max_cg_iters"),
+                   "dense_s": time.perf_counter() - t0, "max_pose_diff": diff,
+                   "dense_moved_pose": moved, "pose_ratio": ratio(diff, moved),
+                   "chi2_cg": float(res.chi2_history[-1]),
+                   "chi2_dense": float(dense.chi2_history[-1])}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+        for pr, kw, res in kept["bundle_adjust_cg"]:
+            _sync()
+            t0 = time.perf_counter()
+            dense = ba.bundle_adjust(pr, n_iters=kw.get("n_iters", ba.FULL_BA_ITER))
+            _sync()
+            obs = torch.zeros(pr.points.shape[0], dtype=torch.bool, device=pr.points.device)
+            obs[pr.pt_idx[pr.valid].long()] = True
+            free = ~pr.fixed
+            moved_p = (dense.poses - pr.poses)[free].abs().max().item()
+            diff_p = (res.poses - dense.poses)[free].abs().max().item()
+            moved_x = torch.linalg.norm(dense.points - pr.points, dim=-1)[obs]
+            diff_x = torch.linalg.norm(res.points - dense.points, dim=-1)[obs]
+            q = torch.tensor([0.99], dtype=moved_x.dtype, device=moved_x.device)
+            p99_moved, p99_diff = torch.quantile(moved_x, q).item(), torch.quantile(diff_x, q).item()
+            row = {"route": "global_ba", "F": int(pr.poses.shape[0]), "P": int(pr.points.shape[0]),
+                   "edges": int(pr.valid.sum()), "pcg_steps": kw.get("max_cg_iters"),
+                   "dense_s": time.perf_counter() - t0, "max_pose_diff": diff_p,
+                   "dense_moved_pose": moved_p, "pose_ratio": ratio(diff_p, moved_p),
+                   "p99_point_diff": p99_diff, "dense_moved_p99_point": p99_moved,
+                   "p99_point_ratio": ratio(p99_diff, p99_moved),
+                   "chi2_cg": float(res.chi2_history[-1]),
+                   "chi2_dense": float(dense.chi2_history[-1])}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    pg_sweep(kept["optimize_cg"])
+    f_pose, f_point = cs.CG_VS_DENSE_FRAC
+    bad = [r for r in rows if r["pose_ratio"] > f_pose or r.get("p99_point_ratio", 0) > f_point]
+    print(json.dumps({"device": smi, "cg_calls": {k: len(v) for k, v in kept.items()},
+                      "rule": {"pose": f_pose, "p99_point": f_point},
+                      "worst_pose_ratio": max((r["pose_ratio"] for r in rows), default=None),
+                      "worst_p99_point_ratio": max((r.get("p99_point_ratio", 0) for r in rows),
+                                                   default=None),
+                      "failing_rule": len(bad)}), flush=True)
+    return 0
+
+
+def pg_sweep(kept) -> None:
+    """The CG pose graph on the first, a middle and the last of the long
+    run's CG graphs at more PCG steps: fixed trip counts, and a convergence
+    stop (`check_every` 50 under a cap of 3200) at three tolerances on the
+    last graph; float64 at the closer's count on the last graph. Per run:
+    seconds, PCG steps run over the 20 LM iterations, the pose ratio to the
+    dense route."""
+    from monocular_slam_tpu_torch.optim import cg_ba, pose_graph
+    from monocular_slam_tpu_torch.slam.loop_closer import POSE_GRAPH_CG_ITERS
+
+    steps_run = []
+    plain_pcg = cg_ba.pcg
+
+    def counted(*a, **kw):
+        x, stats = plain_pcg(*a, **kw)
+        steps_run.append(stats.n_iters)
+        return x, stats
+
+    picks = sorted({0, len(kept) // 2, len(kept) - 1}) if kept else []
+    cg_ba.pcg = counted
+    try:
+        with torch.inference_mode():
+            for n, idx in enumerate(picks):
+                g, kw, _ = kept[idx]
+                dense = pose_graph.optimize(g, n_iters=kw.get("n_iters", 20),
+                                            huber_delta=kw.get("huber_delta"))
+                moved = (dense.vertices - g.vertices).abs().max().item()
+                variants = [(f"fixed {m}", g, dict(kw, max_cg_iters=m)) for m in (400, 800, 1600)]
+                if idx == picks[-1]:
+                    variants += [(f"stop rtol {t:g}", g, dict(kw, max_cg_iters=3200, rtol=t,
+                                                              check_every=50))
+                                 for t in (1e-4, 1e-5, 1e-6)]
+                    variants.append((f"float64 {POSE_GRAPH_CG_ITERS}", g._replace(
+                        vertices=g.vertices.double(), meas=g.meas.double(),
+                        weight=g.weight.double()), dict(kw, max_cg_iters=POSE_GRAPH_CG_ITERS)))
+                for name, gv, kv in variants:
+                    steps_run.clear()
+                    _sync()
+                    t0 = time.perf_counter()
+                    res = pose_graph.optimize_cg(gv, **kv)
+                    _sync()
+                    dt = time.perf_counter() - t0
+                    diff = (res.vertices.float() - dense.vertices).abs().max().item()
+                    print(json.dumps({"sweep": name, "K_pad": int(g.vertices.shape[0]),
+                                      "edges": int(g.valid.sum()), "s": dt,
+                                      "pcg_steps_run": int(sum(int(v) for v in steps_run)),
+                                      "pose_ratio": diff / moved,
+                                      "chi2": float(res.chi2_history[-1]),
+                                      "chi2_dense": float(dense.chi2_history[-1])}), flush=True)
+    finally:
+        cg_ba.pcg = plain_pcg
+
+
+def nccl_cost(smi: str) -> int:
+    import chip_smoke as cs
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from monocular_slam_tpu_torch.parallel import distributed
+    from monocular_slam_tpu_torch.parallel.mesh import make_mesh
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{cs._free_port()}",
+                            world_size=1, rank=0)
+    try:
+        group = make_mesh(1).get_group("model")
+        x = torch.randn(1000, 6, device="cuda")
+        a = torch.randn(4096, 4096, device="cuda")
+        out = {"device": smi}
+        for _ in range(20):
+            distributed.all_reduce(group, x)
+        _sync()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            distributed.all_reduce(group, x)
+        out["idle_host_ms_per_call"] = (time.perf_counter() - t0) / 500 * 1e3
+        _sync()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            a = a @ a
+            a = a / a.norm()
+        chain_s = time.perf_counter() - t0
+        _sync()
+        out["chain_alone_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(100):
+            a = a @ a
+            a = a / a.norm()
+        t1 = time.perf_counter()
+        for _ in range(500):
+            distributed.all_reduce(group, x)
+        t2 = time.perf_counter()
+        _sync()
+        t3 = time.perf_counter()
+        out |= {"chain_enqueue_s": chain_s, "busy_host_ms_per_call": (t2 - t1) / 500 * 1e3,
+                "busy_calls_returned_before_chain_end": t2 < t0 + out["chain_alone_s"],
+                "busy_total_s": t3 - t0}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                distributed.all_reduce(group, x)
+            _sync()
+        cuda = torch.autograd.DeviceType.CUDA
+        out["profile_20_calls"] = sorted(
+            [(e.key, e.count, round(e.cpu_time_total / 1e3, 3), e.device_type == cuda)
+             for e in prof.key_averages()], key=lambda r: -r[2])[:15]
+        print(json.dumps(out), flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def det_sum(smi: str, root: str | None) -> int:
+    if root:
+        sys.path.insert(0, root)
+    import chip_smoke as cs
+    import monocular_slam_tpu_torch
+    from monocular_slam_tpu_torch.datasets import render
+    from monocular_slam_tpu_torch.ops import fast_score, hamming
+    from monocular_slam_tpu_torch.optim import cg_ba, pose_graph
+    from monocular_slam_tpu_torch.utils.device import apply_precision_policy
+
+    apply_precision_policy()
+    fast_score.load()
+    hamming.load()
+    out = {"package": monocular_slam_tpu_torch.__file__}
+    g = cs._scale_pose_graph("cuda")
+    prob, _ = cs._scale_ba_problem("cuda")
+    for name, fn in (("pose_graph_cg_s_per_lm_iter",
+                      lambda: pose_graph.optimize_cg(g, n_iters=cs.SCALE_ITERS)),
+                     ("global_ba_cg_s_per_lm_iter",
+                      lambda: cg_ba.bundle_adjust_cg(prob, n_iters=cs.SCALE_ITERS, max_cg_iters=50))):
+        fn()
+        times = [cs._timed_solve(fn)[1] / cs.SCALE_ITERS for _ in range(3)]
+        out[name] = min(times)
+        out[name + "_all"] = times
+    imgs, poses_gt, k = render.render_sequence(seed=11, n_frames=cs.N_FRAMES, wh=cs.WH, device="cuda")
+    run = cs.run_session(imgs, poses_gt, k, count_syncs=False)
+    out |= {"session_fps_10_59": run["fps_10_59"], "session_ate_m": run["ate_m"]}
+    print(json.dumps({"device": smi, **out}), flush=True)
+    return 0
+
+
 def cg_steps(smi: str) -> int:
     import chip_smoke as cs
     from monocular_slam_tpu_torch.slam import loop_closer
@@ -313,21 +559,27 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_profile: needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    if sys.argv[1:2] == ["detsum"]:  # before any import of the package
+        return det_sum(smi, sys.argv[2] if len(sys.argv) > 2 else None)
     import chip_smoke as cs
     from monocular_slam_tpu_torch.ops import fast_score, hamming
     from monocular_slam_tpu_torch.retrieval import vocabulary
     from monocular_slam_tpu_torch.utils.device import apply_precision_policy
 
     apply_precision_policy()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    print(smi, flush=True)
     if sys.argv[1:] == ["window"]:
         return window_ab(smi)
     if sys.argv[1:] == ["cgsteps"]:
         return cg_steps(smi)
     if sys.argv[1:] == ["cgdense"]:
         return cg_dense(smi)
+    if sys.argv[1:] == ["cgdense", "long"]:
+        return cg_dense_long(smi)
+    if sys.argv[1:] == ["nccl"]:
+        return nccl_cost(smi)
     if sys.argv[1:] == ["cli"]:
         return cli_run(smi)
     if sys.argv[1:2] == ["long"]:

@@ -59,14 +59,35 @@ benchmark's full width and checks them:
                 BA and of `correct` on the loop phase's final state: the
                 CG route's poses (99% of its points) must agree with the
                 dense route's to within 10% (25%) of the dense correction;
- 10. long     — benchmarks/long_run.py's configuration (`run_long`) cut to
+ 10. dist     — the distributed solvers (`parallel/*`). NCCL at world size 1
+                in this process: `distributed_bundle_adjust(solver="cg")` on
+                the scale phase's 1.5M-edge problem against
+                `cg_ba.bundle_adjust_cg` (50 PCG steps), `distributed_optimize`
+                on its 10,000-keyframe graph against `optimize_cg`, and
+                `solver="dense"` on the loop phase's global-BA problem against
+                `ba.bundle_adjust`: chi2 histories to rtol 1e-5 and poses to
+                1e-5; seconds per LM iteration of each route, the all-reduce
+                calls and bytes per PCG step (counted by
+                `distributed.record_collectives`: one (F, 6) sum per step plus
+                one per LM iteration, none above 100 F elements but the final
+                gather), NCCL's share in `torch.profiler`. Then two gloo ranks
+                as processes on the same card, `initialize`d from the MSLAM_*
+                variables (`chip_smoke.py dist-rank`): a seeded problem of
+                128 cameras, 20,000 points and 1000 observations per camera
+                through "auto" (dense at 2 shards) and "cg" (finite, chi2
+                down, within DIST_GLOO_TOL of the single-device routes) and
+                the golden fixture (poses within 1e-5 of ba_expected.npz).
+                Repeat check: the CG BA (single-device and sharded), the CG
+                pose graph and the 60-frame session each run twice, bit for
+                bit the same;
+ 11. long     — benchmarks/long_run.py's configuration (`run_long`) cut to
                 LONG_FRAMES frames: fails on a non-finite pose, below 95%
                 tracked, below 2 closures, if `optimize_cg` or
                 `bundle_adjust_cg` was never called, if no feature slot was
                 evicted, unless K1 launched once per frame and K2 at least
                 twice in every track call; reports ATE, fps, prewarm
                 seconds, each Sim3's seconds and the closure stages;
- 11. cli      — the port's CLI as a user runs it: the long run's course
+ 12. cli      — the port's CLI as a user runs it: the long run's course
                 (seed 19, 0.05 rad/frame) rendered on the card for
                 CLI_FRAMES frames, written as a TUM directory by
                 `render.write_tum` (8-bit PNGs, groundtruth, calib) and
@@ -84,6 +105,10 @@ benchmark's full width and checks them:
                 in KITTI layout through `run.main` in-process (tracked >=
                 KITTI_MIN_TRACKED) and the synthetic feature route at the
                 CLI's defaults (finite ATE).
+ 13. mesh     — `viz.mesh.estimate_normals` + `poisson_mesh` on the card:
+                the cli phase's map.ply points (finite, triangles) and the
+                4000-point unit sphere at depth 5 (watertight: no boundary
+                edge; mean radius within 5% of 1); seconds of each.
 
 Every phase raises on failure. Kernel launch counts are set to 0 just
 before each path is driven and read just after (in `long`, after the
@@ -139,6 +164,13 @@ SCALE_LOOPS = 100
 SCALE_BA = (1000, 100_000, 1500)  # cameras, points, observations per camera
 SCALE_ITERS = 10
 CG_VS_DENSE_FRAC = (0.1, 0.25)  # CG vs dense route on the loop state: poses, 99% of points
+# the dist phase: sharded routes at world size 1 (NCCL) against the single-
+# device routes; two gloo ranks on a seeded problem of DIST_BA's shape
+DIST_RTOL = 1e-5
+DIST_POSE_TOL = 1e-5
+DIST_BA = (128, 20_000, 1000)  # cameras, points, observations per camera
+DIST_GLOO_TOL = {"auto": (1e-5, 1e-4), "cg": (1e-5, 1e-4)}  # (chi2 final rel, pose) vs single
+DIST_RANK_TIMEOUT_S = 300
 LONG_FRAMES = 400
 # the CLI phase: the long run's orbit through files, the decoder and the CLI
 CLI_FRAMES = 200
@@ -756,7 +788,9 @@ def _timed_solve(fn):
 
 def device_ops(fn) -> int:
     """Operations (kernels, copies, memsets) one call of fn puts on the card,
-    counted by `torch.profiler`."""
+    counted by `torch.profiler` from its raw device events (building its
+    per-event summaries took minutes for the 10^6 operations of a CG
+    correction)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -764,7 +798,7 @@ def device_ops(fn) -> int:
         fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    return sum(e.count for e in prof.key_averages() if e.device_type == cuda)
+    return sum(1 for e in prof.profiler.kineto_results.events() if e.device_type() == cuda)
 
 
 def _state_diff(a, b, ref) -> dict:
@@ -913,6 +947,324 @@ def phase_scale(loop_sess, loop_out, dev="cuda") -> dict:
                 and row["p99_point_diff_m"] <= f_point * row["dense_moved_p99_point_m"]):
             raise AssertionError(f"scale: {name}: the CG route's correction differs from the "
                                  f"dense route's by more than {CG_VS_DENSE_FRAC} of it: {row}")
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _nccl_kernels(fn) -> dict:
+    """NCCL's share of one call of fn under `torch.profiler`: device kernels
+    whose name holds "nccl", and the process group's `nccl:all_reduce`
+    host events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    ev = prof.key_averages()
+    return {"device_kernels": sum(e.count for e in ev if e.device_type == cuda
+                                  and "nccl" in e.key.lower()),
+            "nccl_all_reduce_events": sum(e.count for e in ev if e.key == "nccl:all_reduce")}
+
+
+def _rel(a, b) -> float:
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+
+
+def _maxdiff(a, b) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+def _dist_problem(dev, F=DIST_BA[0], P=DIST_BA[1], obs=DIST_BA[2], seed=8):
+    """The two-rank check's problem (numpy draws): F cameras on an arc
+    looking at P points in a box 12 m ahead, obs random observations per
+    camera with 0.5 px noise, poses perturbed by 0.003-sigma twists,
+    points by 0.05 m; cameras 0 and 1 fixed. float32."""
+    from monocular_slam_tpu_torch.geometry import se3, so3
+    from monocular_slam_tpu_torch.optim import ba
+
+    rng = np.random.RandomState(seed)
+    X = rng.uniform(-3, 3, (P, 3)) + [0.0, 0.0, 12.0]
+    f64 = torch.float64
+    poses = se3.from_Rt(so3.exp(torch.tensor([[0.0, 0.005 * i, 0.0] for i in range(F)], dtype=f64)),
+                        torch.tensor([[-0.05 * i, 0.0, 0.0] for i in range(F)], dtype=f64))
+    cam = np.repeat(np.arange(F), obs)
+    pt = rng.randint(0, P, F * obs)
+    Xc = se3.apply(poses[torch.as_tensor(cam)], torch.as_tensor(X[pt])).numpy()
+    k = np.array([500.0, 500.0, 320.0, 240.0])
+    uv = k[:2] * Xc[:, :2] / Xc[:, 2:] + k[2:] + 0.5 * rng.randn(F * obs, 2)
+    fixed = np.zeros(F, bool)
+    fixed[:2] = True
+    p0 = se3.compose(se3.exp(torch.as_tensor(0.003 * rng.randn(F, 6))), poses)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    return ba.BAProblem(f32(p0), f32(X + 0.05 * rng.randn(P, 3)), f32(np.tile(k, (F, 1))),
+                        torch.as_tensor(cam, device=dev), torch.as_tensor(pt, device=dev), f32(uv),
+                        torch.ones(F * obs, device=dev),
+                        torch.ones(F * obs, dtype=torch.bool, device=dev),
+                        torch.as_tensor(fixed, device=dev))
+
+
+def dist_rank() -> int:
+    """One of the two gloo ranks of the dist phase (`chip_smoke.py
+    dist-rank`, started with MSLAM_COORDINATOR / MSLAM_NUM_PROCESSES /
+    MSLAM_PROCESS_ID): CUDA tensors on the one card, `initialize` from the
+    variables, the seeded problem through "auto" (dense at 2 shards) and
+    "cg", and the golden fixture; rank 0 also runs the single-device
+    routes. Prints one DIST_RANK JSON line."""
+    import torch.distributed as dist
+
+    from monocular_slam_tpu_torch.io import snapshot
+    from monocular_slam_tpu_torch.optim import ba, cg_ba
+    from monocular_slam_tpu_torch.parallel import distributed, sharded_ba
+
+    multi = distributed.initialize(device="cuda", backend="gloo")
+    rank = dist.get_rank()
+    mesh = distributed.global_mesh(device="cuda")
+    prob = _dist_problem("cuda")
+    out = {"rank": rank, "world": dist.get_world_size(), "multi": multi,
+           "backend": dist.get_backend(), "mesh_model": mesh.size(1)}
+    for solver, single_fn in (("auto", lambda: ba.bundle_adjust(prob, n_iters=SCALE_ITERS)),
+                              ("cg", lambda: cg_ba.bundle_adjust_cg(prob, n_iters=SCALE_ITERS,
+                                                                    max_cg_iters=100))):
+        res, t, _ = _timed_solve(lambda: sharded_ba.distributed_bundle_adjust(
+            prob, mesh, n_iters=SCALE_ITERS, solver=solver, max_cg_iters=100))
+        row = {"s": t, "chi2_initial": float(res.chi2_initial),
+               "chi2_final": float(res.chi2_history[-1]),
+               "finite": bool(torch.isfinite(res.poses).all() and torch.isfinite(res.points).all())}
+        if rank == 0:
+            ref, t_ref, _ = _timed_solve(single_fn)
+            row |= {"single_s": t_ref, "single_chi2_final": float(ref.chi2_history[-1]),
+                    "chi2_final_rel_diff": _rel(res.chi2_history[-1], ref.chi2_history[-1]),
+                    "max_pose_diff": _maxdiff(res.poses, ref.poses),
+                    "p99_point_diff_m": float(torch.quantile(
+                        torch.linalg.norm(res.points - ref.points, dim=-1), 0.99))}
+        out[solver] = row
+    golden = snapshot.load_ba_problem(str(ROOT / "tests/fixtures/ba_problem.npz"), device="cuda")
+    exp = np.load(ROOT / "tests/fixtures/ba_expected.npz")
+    res = sharded_ba.distributed_bundle_adjust(golden, mesh, n_iters=15)
+    out["golden_max_pose_diff"] = float(np.abs(res.poses.cpu().numpy() - exp["poses"]).max())
+    print("DIST_RANK " + json.dumps(out), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def _two_gloo_ranks() -> list:
+    """Both gloo ranks as processes on the one card, rendezvous on a
+    localhost port; waits for both and kills neither-finished one."""
+    port = _free_port()
+    env0 = dict(os.environ, MSLAM_COORDINATOR=f"localhost:{port}", MSLAM_NUM_PROCESSES="2",
+                PYTHONPATH=os.pathsep.join([str(ROOT)] + [
+                    p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "dist-rank"],
+                              env=dict(env0, MSLAM_PROCESS_ID=str(r)), cwd=str(ROOT),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    reports = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=DIST_RANK_TIMEOUT_S)
+            if p.returncode != 0:
+                raise AssertionError(f"dist: a gloo rank exited {p.returncode}:\n{err[-3000:]}")
+            reports += [json.loads(x.split(" ", 1)[1]) for x in out.splitlines()
+                        if x.startswith("DIST_RANK ")]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return sorted(reports, key=lambda r: r["rank"])
+
+
+def phase_dist(sess_out, loop_sess) -> dict:
+    """The distributed solvers on the card: NCCL at world size 1 in this
+    process against the single-device routes at the scale phase's width,
+    the dense route on the loop state, two gloo ranks on the same card, and
+    the repeat check (CG BA, CG pose graph, the 60-frame session, each run
+    twice, bit-identical)."""
+    import torch.distributed as dist
+
+    from monocular_slam_tpu_torch.optim import ba, cg_ba, pose_graph
+    from monocular_slam_tpu_torch.parallel import distributed, sharded_ba, sharded_pose_graph
+    from monocular_slam_tpu_torch.parallel.mesh import make_mesh
+
+    out = {}
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1)
+        out["backend"] = dist.get_backend(mesh.get_group("model"))
+        prob, _ = _scale_ba_problem("cuda")
+        F = prob.poses.shape[0]
+        kw = dict(n_iters=SCALE_ITERS, max_cg_iters=50)
+        # two calls of each route; the second is timed (the first of the
+        # sharded route also sets up NCCL's communicator)
+        single = [_timed_solve(lambda: cg_ba.bundle_adjust_cg(prob, **kw)) for _ in range(2)]
+        with distributed.record_collectives() as rec:
+            shard = [_timed_solve(lambda: sharded_ba.distributed_bundle_adjust(
+                prob, mesh, solver="cg", cg_rtol=1e-8, **kw)) for _ in range(2)]
+        (s1, _, _), (s2, t_s, _) = single
+        (d1, _, _), (d2, t_d, mem_d) = shard
+        per_call = len(rec) // 2
+        solve = [c for c in rec[:per_call] if c["label"] != "gather"]  # the LM loop's
+        pcg = [c for c in solve if c["elements"] == 6 * F]
+        out["global_ba"] = {
+            "edges": int(prob.cam_idx.shape[0]), "s_per_lm_iter_single": t_s / SCALE_ITERS,
+            "s_per_lm_iter_sharded": t_d / SCALE_ITERS, "peak_mem_mb_sharded": mem_d,
+            "chi2_history_rel_diff": _rel(d2.chi2_history, s2.chi2_history),
+            "max_pose_diff": _maxdiff(d2.poses, s2.poses),
+            "max_point_diff": _maxdiff(d2.points, s2.points),
+            "all_reduce_calls": per_call, "all_reduce_6F_calls": len(pcg),
+            "pcg_steps": SCALE_ITERS * kw["max_cg_iters"],
+            "bytes_per_pcg_step": pcg[0]["bytes"] if pcg else None,
+            "largest_all_reduce_elements": max(c["elements"] for c in solve),
+            "gather_elements": [c["elements"] for c in rec[:per_call] if c["label"] == "gather"],
+            "repeat_bit_identical_single": bool(torch.equal(s1.poses, s2.poses)
+                                                and torch.equal(s1.points, s2.points)),
+            "repeat_bit_identical_sharded": bool(torch.equal(d1.poses, d2.poses)
+                                                 and torch.equal(d1.points, d2.points)),
+        }
+        out["global_ba"]["nccl"] = _nccl_kernels(lambda: sharded_ba.distributed_bundle_adjust(
+            prob, mesh, n_iters=1, solver="cg", max_cg_iters=10))
+        log("[dist] NCCL world 1, CG BA " + json.dumps(out["global_ba"]))
+
+        g = _scale_pose_graph("cuda")
+        pg_single = [_timed_solve(lambda: pose_graph.optimize_cg(g, n_iters=SCALE_ITERS))
+                     for _ in range(2)]
+        with distributed.record_collectives() as rec:
+            pg_shard = [_timed_solve(lambda: sharded_pose_graph.distributed_optimize(
+                g, mesh, n_iters=SCALE_ITERS)) for _ in range(2)]
+        (p1, _, _), (p2, t_ps, _) = pg_single
+        pd, t_pd, _ = pg_shard[1]
+        rec = rec[: len(rec) // 2]
+        Fk = g.vertices.shape[0]
+        out["pose_graph"] = {
+            "keyframes": Fk, "s_per_lm_iter_single": t_ps / SCALE_ITERS,
+            "s_per_lm_iter_sharded": t_pd / SCALE_ITERS,
+            "chi2_history_rel_diff": _rel(pd.chi2_history, p2.chi2_history),
+            "max_vertex_diff": _maxdiff(pd.vertices, p2.vertices),
+            "all_reduce_calls": len(rec),
+            "all_reduce_7F_calls": sum(c["elements"] == 7 * Fk for c in rec),
+            "bytes_per_pcg_step": 7 * Fk * 4,
+            "repeat_bit_identical_single": bool(torch.equal(p1.vertices, p2.vertices)),
+        }
+        log("[dist] NCCL world 1, pose graph " + json.dumps(out["pose_graph"]))
+
+        captured = {}
+        lc, st = loop_sess.loop_closer, loop_sess.state
+        valid = st.pose_valid.cpu().numpy()
+        kfs = [f for f in loop_sess._keyframes if valid[f]]
+        pad = torch.zeros(st.poses.shape[0], dtype=torch.long, device="cuda")
+        pad[: len(kfs)] = torch.as_tensor(kfs, device="cuda")
+        n = lc.lc.global_ba_iters
+
+        def capture(pr):
+            captured["prob"] = pr
+            return ba.bundle_adjust(pr, n_iters=n)
+
+        with torch.inference_mode():
+            lc._gba_impl(st, pad, len(kfs), capture)
+            pr = captured["prob"]
+            ref, t_ref, _ = _timed_solve(lambda: ba.bundle_adjust(pr, n_iters=n))
+            dd, t_dd, _ = _timed_solve(lambda: sharded_ba.distributed_bundle_adjust(
+                pr, mesh, n_iters=n, solver="dense"))
+        out["dense_loop_state"] = {
+            "frames": int(pr.poses.shape[0]), "points": int(pr.points.shape[0]),
+            "edges": int(pr.valid.sum()), "s_single": t_ref, "s_sharded": t_dd,
+            "chi2_history_rel_diff": _rel(dd.chi2_history, ref.chi2_history),
+            "max_pose_diff": _maxdiff(dd.poses, ref.poses)}
+        log("[dist] NCCL world 1, dense on the loop state " + json.dumps(out["dense_loop_state"]))
+    finally:
+        dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    ranks = _two_gloo_ranks()
+    out["gloo_two_ranks"] = {"s": time.perf_counter() - t0, "ranks": ranks}
+    log("[dist] two gloo ranks on the card " + json.dumps(out["gloo_two_ranks"]))
+
+    again = run_session(sess_out["imgs"], sess_out["poses_gt"], sess_out["k"], count_syncs=False)
+    out["session_repeat_bit_identical"] = bool(np.array_equal(again["poses"], sess_out["poses"]))
+    log(f"[dist] repeat: CG BA {out['global_ba']['repeat_bit_identical_single']} (sharded "
+        f"{out['global_ba']['repeat_bit_identical_sharded']}), CG pose graph "
+        f"{out['pose_graph']['repeat_bit_identical_single']}, 60-frame session "
+        f"{out['session_repeat_bit_identical']}")
+
+    fails = []
+    gb, pg, dl = out["global_ba"], out["pose_graph"], out["dense_loop_state"]
+    if out["backend"] != "nccl" or gb["nccl"]["nccl_all_reduce_events"] < 1:
+        fails.append(f"the collectives did not go through NCCL: {out['backend']}, {gb['nccl']}")
+    for name, row, key in (("CG BA", gb, "max_pose_diff"), ("pose graph", pg, "max_vertex_diff"),
+                           ("dense loop-state BA", dl, "max_pose_diff")):
+        if not (row["chi2_history_rel_diff"] <= DIST_RTOL and row[key] <= DIST_POSE_TOL):
+            fails.append(f"{name}: sharded vs single-device {row}")
+    if gb["all_reduce_6F_calls"] != SCALE_ITERS * (gb["pcg_steps"] // SCALE_ITERS + 1):
+        fails.append(f"CG BA: {gb['all_reduce_6F_calls']} (F, 6) all-reduces")
+    if gb["largest_all_reduce_elements"] > 100 * F:
+        fails.append(f"CG BA: an all-reduce of {gb['largest_all_reduce_elements']} elements")
+    for r in ranks:
+        for solver in ("auto", "cg"):
+            row = r[solver]
+            if not (row["finite"] and row["chi2_final"] < row["chi2_initial"]):
+                fails.append(f"gloo rank {r['rank']} {solver}: {row}")
+        if r["golden_max_pose_diff"] >= 1e-5:
+            fails.append(f"gloo rank {r['rank']}: golden fixture {r['golden_max_pose_diff']}")
+    if len(ranks) != 2 or any(r["backend"] != "gloo" or not r["multi"] for r in ranks):
+        fails.append(f"gloo ranks: {ranks}")
+    for solver, (tol_chi2, tol_pose) in DIST_GLOO_TOL.items():
+        row = ranks[0][solver] if ranks else {}
+        if not (row.get("chi2_final_rel_diff", 1) <= tol_chi2
+                and row.get("max_pose_diff", 1) <= tol_pose):
+            fails.append(f"gloo {solver} vs single device: {row}")
+    if not (gb["repeat_bit_identical_single"] and gb["repeat_bit_identical_sharded"]
+            and pg["repeat_bit_identical_single"] and out["session_repeat_bit_identical"]):
+        fails.append("a repeated run differed in its bits")
+    if fails:
+        raise AssertionError("dist: " + "; ".join(fails))
+    return out
+
+
+def phase_mesh(cli_out) -> dict:
+    """`estimate_normals` + `poisson_mesh` on the card: the cli phase's
+    map.ply points and the 4000-point unit sphere (watertight)."""
+    from monocular_slam_tpu_torch.viz import mesh
+
+    out = {}
+    rng = np.random.RandomState(0)
+    d = rng.normal(size=(4000, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    for name, pts, kw in (("map", cli_out["map_points"], {}),
+                          ("sphere", d, {"depth": 5})):
+        x = torch.as_tensor(pts, dtype=torch.float64, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        normals = mesh.estimate_normals(x, k=16)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        v, t = mesh.poisson_mesh(x, normals=normals, **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        r = torch.linalg.norm(v - x.mean(0), dim=1)
+        out[name] = {"points": int(x.shape[0]), "normals_s": t1 - t0, "poisson_s": t2 - t1,
+                     "verts": int(v.shape[0]), "tris": int(t.shape[0]),
+                     "boundary_edges": mesh.mesh_boundary_edges(t),
+                     "finite": bool(torch.isfinite(v).all() and torch.isfinite(normals).all()),
+                     "radius_mean": float(r.mean()), "radius_std": float(r.std())}
+    log("[mesh] " + json.dumps(out))
+    m, s = out["map"], out["sphere"]
+    if not (m["finite"] and m["tris"] > 0 and s["finite"] and s["tris"] > 1000
+            and s["boundary_edges"] == 0 and abs(s["radius_mean"] - 1.0) < 0.05):
+        raise AssertionError(f"mesh: {out}")
     return out
 
 
@@ -1214,6 +1566,7 @@ def phase_cli() -> dict:
         if not np.isfinite(synth.get("ate_rmse", np.nan)) or "tracked" not in synth:
             raise AssertionError(f"cli: synthetic route reported {synth}")
         out |= {"kitti": kitti, "synthetic": synth}
+        out["map_points"] = pts  # for the mesh phase
         return out
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1221,15 +1574,26 @@ def phase_cli() -> dict:
 
 def main() -> int:
     t0 = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
     phase_device()
-    phase_build()
-    res = phase_session()
-    k2 = phase_k2(res["imgs"])
-    phase_lc60(res)
-    loop, loop_sess = phase_loop()
-    phase_scale(loop_sess, loop)
-    phase_long()
-    cli = phase_cli()
+    timed("build", phase_build)
+    res = timed("session", phase_session)
+    k2 = timed("k2", phase_k2, res["imgs"])
+    timed("lc60", phase_lc60, res)
+    loop, loop_sess = timed("loop", phase_loop)
+    timed("scale", phase_scale, loop_sess, loop)
+    timed("dist", phase_dist, res, loop_sess)
+    timed("long", phase_long)
+    cli = timed("cli", phase_cli)
+    timed("mesh", phase_mesh, cli)
+    log("[done] seconds by phase " + json.dumps(seconds))
     k1 = res["k1"]
     win = k2[WINDOW]
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; loop K1 launches "
@@ -1255,6 +1619,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["dist-rank"]:
+        sys.exit(dist_rank())
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs an NVIDIA GPU",
               file=sys.stderr)

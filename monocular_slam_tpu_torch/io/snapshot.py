@@ -15,6 +15,7 @@ import torch
 
 from monocular_slam_tpu_torch.optim.ba import BAProblem
 from monocular_slam_tpu_torch.slam.state import SlamState, state_from_numpy, state_to_numpy
+from monocular_slam_tpu_torch.utils.device import resolve_device
 
 
 def save_state(path: str, state: SlamState) -> None:
@@ -22,10 +23,11 @@ def save_state(path: str, state: SlamState) -> None:
 
 
 def load_state(path: str, device=None) -> SlamState:
-    """The snapshot at `path` as a SlamState on `device` (default: the CPU,
-    where `np.load` leaves it; pass the session's device)."""
+    """The snapshot at `path` as a SlamState on `device` (default: the card;
+    pass `device="cpu"` for the CPU)."""
+    dev = resolve_device(device)
     with np.load(path) as data:
-        return state_from_numpy({f: data[f] for f in SlamState._fields}, device=device)
+        return state_from_numpy({f: data[f] for f in SlamState._fields}, device=dev)
 
 
 def save_ba_problem(path: str, prob: BAProblem) -> None:
@@ -35,5 +37,8 @@ def save_ba_problem(path: str, prob: BAProblem) -> None:
 
 
 def load_ba_problem(path: str, device=None) -> BAProblem:
+    """The BAProblem at `path` on `device` (default: the card; pass
+    `device="cpu"` for the CPU), in the file's dtypes."""
+    dev = resolve_device(device)
     with np.load(path) as data:
-        return BAProblem(**{f: torch.as_tensor(data[f], device=device) for f in BAProblem._fields})
+        return BAProblem(**{f: torch.as_tensor(data[f], device=dev) for f in BAProblem._fields})

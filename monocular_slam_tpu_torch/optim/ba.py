@@ -27,7 +27,7 @@ import torch
 from monocular_slam_tpu_torch.geometry import se3
 from monocular_slam_tpu_torch.optim import lm, residuals, robust
 from monocular_slam_tpu_torch.utils.linalg import inv3x3
-from monocular_slam_tpu_torch.utils.scatter import segment_sum
+from monocular_slam_tpu_torch.utils.scatter import segment_sum, segments
 
 THRESH_HUBER_FULL_BA = 5.99**0.5
 FULL_BA_ITER = 15
@@ -75,9 +75,12 @@ def _small_mv(A, x):
 
 def _linearize_graph(prob: BAProblem, poses, points, delta: float):
     """Every edge linearized in one batch, reduced to block normal
-    equations by segment sums over cameras and points."""
+    equations by segment sums over cameras and points. The two segment
+    plans (`cam_seg`, `pt_seg`) ride along for the solves' sums; they drop
+    the invalid edges, whose weight, and so every block, is 0."""
     F, P = poses.shape[0], points.shape[0]
     cam, pt = prob.cam_idx.long(), prob.pt_idx.long()
+    cam_seg, pt_seg = segments(cam, F, prob.valid), segments(pt, P, prob.valid)
     r, Jp, Jl = residuals.linearize(poses[cam], points[pt], prob.k[cam], prob.uv)
     w, chi2 = _edge_weights(prob, r, delta)
 
@@ -88,12 +91,31 @@ def _linearize_graph(prob: BAProblem, poses, points, delta: float):
     rw = (r * w[:, None])[..., None]
     return dict(
         chi2=chi2,
-        Hpp=segment_sum(outer2(Jp, Jp), cam, F),
-        Hll=segment_sum(outer2(Jl, Jl), pt, P),
-        bp=segment_sum(-(Jp * rw).sum(-2), cam, F),
-        bl=segment_sum(-(Jl * rw).sum(-2), pt, P),
+        Hpp=segment_sum(outer2(Jp, Jp), cam_seg),
+        Hll=segment_sum(outer2(Jl, Jl), pt_seg),
+        bp=segment_sum(-(Jp * rw).sum(-2), cam_seg),
+        bl=segment_sum(-(Jl * rw).sum(-2), pt_seg),
         W_e=outer2(Jp, Jl),
+        cam_seg=cam_seg,
+        pt_seg=pt_seg,
     )
+
+
+def scatter_pose_point(prob: BAProblem, *blocks):
+    """Each (E, 6, 3) array of edge blocks (zero on invalid edges) summed
+    into a dense (F*6, P*3) cross term, by deterministic segment sums over
+    the (camera, point) pairs (one plan for all). Returns a list."""
+    F, P = prob.poses.shape[0], prob.points.shape[0]
+    pair = segments(prob.cam_idx.long() * P + prob.pt_idx.long(), F * P, prob.valid)
+    return [segment_sum(b, pair).reshape(F, P, 6, 3).permute(0, 2, 1, 3).reshape(F * 6, P * 3)
+            for b in blocks]
+
+
+def keep_where(accept, new: dict, old: dict) -> dict:
+    """The linearization `new` where `accept`, else `old`; the segment plans
+    are the same in both."""
+    return {n: torch.where(accept, v, old[n]) if torch.is_tensor(v) else v
+            for n, v in new.items()}
 
 
 def _chi2_graph(prob: BAProblem, poses, points, delta: float):
@@ -109,18 +131,13 @@ def _schur_solve(prob: BAProblem, lin, lam):
     F, P = lin["Hpp"].shape[0], lin["Hll"].shape[0]
     dt, dev = lin["Hpp"].dtype, lin["Hpp"].device
     cam, pt = prob.cam_idx.long(), prob.pt_idx.long()
+    cam_seg, pt_seg = lin["cam_seg"], lin["pt_seg"]
     Hpp_d = lin["Hpp"] + lam * torch.eye(6, dtype=dt, device=dev)
     Hll_inv = inv3x3(lin["Hll"] + lam * torch.eye(3, dtype=dt, device=dev))
     Y_e = _small_mm(lin["W_e"], Hll_inv[pt])  # (E, 6, 3)
 
-    def scatter_fp(blocks):  # (E, 6, 3) -> (F*6, P*3)
-        out = torch.zeros((F, P, 6, 3), dtype=dt, device=dev)
-        out.index_put_((cam, pt), blocks, accumulate=True)
-        return out.permute(0, 2, 1, 3).reshape(F * 6, P * 3)
-
-    U = scatter_fp(lin["W_e"])
-    Y = scatter_fp(Y_e)
-    b_red = lin["bp"] - segment_sum(_small_mv(Y_e, lin["bl"][pt]), cam, F)
+    U, Y = scatter_pose_point(prob, lin["W_e"], Y_e)
+    b_red = lin["bp"] - segment_sum(_small_mv(Y_e, lin["bl"][pt]), cam_seg)
     ar = torch.arange(F, device=dev)
     S = torch.zeros((F, 6, F, 6), dtype=dt, device=dev)
     S[ar, :, ar, :] = Hpp_d
@@ -137,7 +154,7 @@ def _schur_solve(prob: BAProblem, lin, lam):
     dxp = torch.where(info == 0, dxp, float("nan")).reshape(F, 6)
 
     wt_dxp_e = (lin["W_e"] * dxp[cam][..., None]).sum(-2)  # (E, 3)
-    dxl = _small_mv(Hll_inv, lin["bl"] - segment_sum(wt_dxp_e, pt, P))
+    dxl = _small_mv(Hll_inv, lin["bl"] - segment_sum(wt_dxp_e, pt_seg))
     return dxp, dxl, b_red.reshape(F, 6)
 
 
@@ -181,7 +198,7 @@ def bundle_adjust(prob, n_iters: int = FULL_BA_ITER, delta: float = THRESH_HUBER
         stall = accept & (lin["chi2"] - chi2_new < 1e-6 * lin["chi2"])
         poses = torch.where(accept, poses_new, poses)
         points = torch.where(accept, points_new, points)
-        lin = {n: torch.where(accept, lin_new[n], lin[n]) for n in lin}
+        lin = keep_where(accept, lin_new, lin)
         st = lm.LMState(
             torch.where(st.done, st.lam, lam_new),
             torch.where(st.done, st.nu, nu_new),
@@ -202,10 +219,10 @@ def global_bundle_adjust(prob: BAProblem, n_iters: int = FULL_BA_ITER) -> BAResu
 def _hessian_vecprod(prob: BAProblem, lin, xp, xl):
     """(H x) from the block linearization without forming H:
     (Hx)_p = Hpp x_p + sum_e W_e x_l(e); (Hx)_l = Hll x_l + sum_e W_e^T x_p(e)."""
-    F, P = lin["Hpp"].shape[0], lin["Hll"].shape[0]
     cam, pt = prob.cam_idx.long(), prob.pt_idx.long()
-    hp = _small_mv(lin["Hpp"], xp) + segment_sum(_small_mv(lin["W_e"], xl[pt]), cam, F)
-    hl = _small_mv(lin["Hll"], xl) + segment_sum((lin["W_e"] * xp[cam][..., None]).sum(-2), pt, P)
+    cam_seg, pt_seg = lin["cam_seg"], lin["pt_seg"]
+    hp = _small_mv(lin["Hpp"], xp) + segment_sum(_small_mv(lin["W_e"], xl[pt]), cam_seg)
+    hl = _small_mv(lin["Hll"], xl) + segment_sum((lin["W_e"] * xp[cam][..., None]).sum(-2), pt_seg)
     return hp, hl
 
 
@@ -246,7 +263,7 @@ def bundle_adjust_gn(prob: BAProblem, n_iters: int = FULL_BA_ITER,
         accept = ok & ~st.done
         poses = torch.where(accept, poses_new, poses)
         points = torch.where(accept, points_new, points)
-        lin = {n: torch.where(accept, lin_new[n], lin[n]) for n in lin}
+        lin = keep_where(accept, lin_new, lin)
         st = st._replace(chi2=lin["chi2"], it=st.it + 1, done=st.done | stall)
         chi2_h.append(st.chi2)
         lam_h.append(st.lam)
@@ -311,7 +328,7 @@ def bundle_adjust_dogleg(prob: BAProblem, n_iters: int = FULL_BA_ITER,
         accept = step_ok & ~st.done
         poses = torch.where(accept, poses_new, poses)
         points = torch.where(accept, points_new, points)
-        lin = {n: torch.where(accept, lin_new[n], lin[n]) for n in lin}
+        lin = keep_where(accept, lin_new, lin)
         st = st._replace(lam=torch.where(st.done, radius, radius_new), chi2=lin["chi2"],
                          it=st.it + 1, done=st.done | stall)
         chi2_h.append(st.chi2)

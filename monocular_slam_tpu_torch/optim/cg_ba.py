@@ -13,9 +13,9 @@ preconditioner is block Jacobi on the exact 6x6 diagonal blocks of S.
 
 `pcg` runs a fixed number of steps; once the residual converges (or turns
 non-finite) the remaining steps compute and discard, every decision a
-`torch.where` on a device flag, so a solve never syncs with the host. On a
-card the segment sums are float atomics (`index_add_`), so the last bits of
-a solve vary from run to run.
+`torch.where` on a device flag, so a solve never syncs with the host. The
+segment sums follow the linearization's sorted plans (`utils/scatter.py`),
+so a solve gives the same bits on every run, on the card too.
 """
 
 from __future__ import annotations
@@ -48,29 +48,29 @@ def _wt_mv(W_e, x_e):
 
 def schur_matvec(prob: ba_mod.BAProblem, lin, Hll_inv, lam, free, x):
     """y = S x, x and y (F, 6); fixed poses act as identity rows."""
-    F, P = lin["Hpp"].shape[0], Hll_inv.shape[0]
     cam, pt = prob.cam_idx.long(), prob.pt_idx.long()
     xf = _gauge_mask(x, free)
     t1 = _small_mv(lin["Hpp"], xf) + lam * xf
-    s_p = segment_sum(_wt_mv(lin["W_e"], xf[cam]), pt, P)
+    s_p = segment_sum(_wt_mv(lin["W_e"], xf[cam]), lin["pt_seg"])
     y_p = _small_mv(Hll_inv, s_p)
-    t2 = segment_sum(_small_mv(lin["W_e"], y_p[pt]), cam, F)
+    t2 = segment_sum(_small_mv(lin["W_e"], y_p[pt]), lin["cam_seg"])
     return _gauge_mask(t1 - t2, free) + torch.where(free[:, None], 0.0, x)
 
 
 def schur_diag_blocks(prob: ba_mod.BAProblem, lin, Hll_inv, lam):
     """The 6x6 diagonal blocks of the damped Schur complement,
     D_f = Hpp_d[f] - sum_{e: cam(e) = f} W_e Hll_d^-1[pt(e)] W_e^T."""
-    F = lin["Hpp"].shape[0]
     W = lin["W_e"]
     WHW_e = torch.matmul(torch.matmul(W, Hll_inv[prob.pt_idx.long()]), W.transpose(-1, -2))
     eye6 = torch.eye(6, dtype=W.dtype, device=W.device)
-    return lin["Hpp"] + lam * eye6 - segment_sum(WHW_e, prob.cam_idx.long(), F)
+    return lin["Hpp"] + lam * eye6 - segment_sum(WHW_e, lin["cam_seg"])
 
 
-def pcg(matvec, precond_apply, b, max_iters: int, rtol: float):
+def pcg(matvec, precond_apply, b, max_iters: int, rtol: float, check_every: int | None = None):
     """Preconditioned conjugate gradient from x = 0 with a fixed trip count
-    and freeze-on-converge. Returns (x, CGStats)."""
+    and freeze-on-converge. Returns (x, CGStats). With `check_every`, the
+    loop also ends once it has frozen, looking every `check_every` steps
+    (one host sync each); the result is the same bits either way."""
     bnorm = torch.sqrt((b * b).sum()) + 1e-30
     x = torch.zeros_like(b)
     r = b
@@ -78,7 +78,7 @@ def pcg(matvec, precond_apply, b, max_iters: int, rtol: float):
     rz = (r * z).sum()
     it = torch.zeros((), dtype=torch.int32, device=b.device)
     done = torch.zeros((), dtype=torch.bool, device=b.device)
-    for _ in range(max_iters):
+    for k in range(max_iters):
         Ap = matvec(p)
         pAp = (p * Ap).sum()
         alpha = rz / torch.where(pAp == 0, 1e-30, pAp)
@@ -92,6 +92,8 @@ def pcg(matvec, precond_apply, b, max_iters: int, rtol: float):
         x, r, p, rz = (torch.where(done, a, a_n) for a, a_n in ((x, x_n), (r, r_n), (p, p_n), (rz, rz_n)))
         it = it + (~done).to(torch.int32)
         done = done | (rel < rtol) | ~torch.isfinite(rel)
+        if check_every and (k + 1) % check_every == 0 and bool(done):
+            break
     return x, CGStats(it, torch.sqrt((r * r).sum()) / bnorm)
 
 
@@ -101,16 +103,16 @@ def make_cg_solve_fn(max_cg_iters: int = 100, rtol: float = 1e-8):
     complement in place of the dense Cholesky."""
 
     def solve(prob: ba_mod.BAProblem, lin, lam):
-        F, P = lin["Hpp"].shape[0], lin["Hll"].shape[0]
         dt, dev = lin["Hpp"].dtype, lin["Hpp"].device
         prob = prob._replace(cam_idx=prob.cam_idx.long(), pt_idx=prob.pt_idx.long())
         cam, pt = prob.cam_idx, prob.pt_idx
+        cam_seg, pt_seg = lin["cam_seg"], lin["pt_seg"]
         free = ~prob.fixed
         Hll_inv = inv3x3(lin["Hll"] + lam * torch.eye(3, dtype=dt, device=dev))
 
         # b_red = bp - W Hll^-1 bl, gauge-masked (the dense path's reduction)
         yb_p = _small_mv(Hll_inv, lin["bl"])
-        b_red = _gauge_mask(lin["bp"] - segment_sum(_small_mv(lin["W_e"], yb_p[pt]), cam, F), free)
+        b_red = _gauge_mask(lin["bp"] - segment_sum(_small_mv(lin["W_e"], yb_p[pt]), cam_seg), free)
 
         # fixed poses take an identity block; zero-observation poses keep
         # lam I from the damping. A singular block gives NaN (and a rejected
@@ -124,7 +126,7 @@ def make_cg_solve_fn(max_cg_iters: int = 100, rtol: float = 1e-8):
                      max_cg_iters, rtol)
 
         # landmarks by back-substitution: dxl = Hll^-1 (bl - W^T dxp)
-        rhs_l = lin["bl"] - segment_sum(_wt_mv(lin["W_e"], dxp[cam]), pt, P)
+        rhs_l = lin["bl"] - segment_sum(_wt_mv(lin["W_e"], dxp[cam]), pt_seg)
         return dxp, _small_mv(Hll_inv, rhs_l), b_red
 
     return solve

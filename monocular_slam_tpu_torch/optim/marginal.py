@@ -53,16 +53,11 @@ def marginal_covariance(prob: ba_mod.BAProblem, delta: float = ba_mod.THRESH_HUB
     Hll_inv = inv3x3(torch.where(point_ok[:, None, None], lin["Hll"] + damping * eye3, eye3))
     Y_e = _small_mm(lin["W_e"], Hll_inv[pt])  # (E, 6, 3)
 
-    def scatter_fp(blocks):  # (E, 6, 3) -> (F*6, P*3)
-        out = torch.zeros((F, P, 6, 3), dtype=dt, device=dev)
-        out.index_put_((cam, pt), blocks, accumulate=True)
-        return out.permute(0, 2, 1, 3).reshape(F * 6, P * 3)
-
-    U = scatter_fp(lin["W_e"])
+    U, Y = ba_mod.scatter_pose_point(prob, lin["W_e"], Y_e)
     ar = torch.arange(F, device=dev)
     S = torch.zeros((F, 6, F, 6), dtype=dt, device=dev)
     S[ar, :, ar, :] = lin["Hpp"] + damping * torch.eye(6, dtype=dt, device=dev)
-    S = S.reshape(F * 6, F * 6) - scatter_fp(Y_e) @ U.T
+    S = S.reshape(F * 6, F * 6) - Y @ U.T
 
     # fixed and unobserved poses: identity rows, zero covariance afterwards
     free6 = pose_ok.repeat_interleave(6)

@@ -11,7 +11,10 @@ LM step; a failed factorization yields NaN, which the step rejects, as the
 reference's `cho_factor` does. `optimize_cg` keeps the same LM schedule on
 per-edge blocks and solves each step with block-Jacobi PCG
 (`optim/cg_ba.pcg`), never forming the Hessian: the loop closer's route
-for keyframe graphs past 128 vertices.
+for keyframe graphs past 128 vertices. Every sum over edges is a
+deterministic segment sum (`utils/scatter.py`), so a solve repeats bit for
+bit on the card; the matrix-free path plans its sums once per
+linearization.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 from monocular_slam_tpu_torch.geometry import sim3
 from monocular_slam_tpu_torch.optim import cg_ba, lm, robust
 from monocular_slam_tpu_torch.utils import autodiff
+from monocular_slam_tpu_torch.utils.scatter import segment_sum, segments
 
 
 class PoseGraph(NamedTuple):
@@ -87,14 +91,11 @@ def _linearize(g: PoseGraph, verts, huber_delta=None):
     bi = -torch.einsum("eai,ea,e->ei", Ji, r, w)
     bj = -torch.einsum("eai,ea,e->ei", Jj, r, w)
     ii, jj = g.i_idx.long(), g.j_idx.long()
-    H = torch.zeros((F, F, 7, 7), dtype=verts.dtype, device=verts.device)
-    H.index_put_((ii, ii), Hii, accumulate=True)
-    H.index_put_((jj, jj), Hjj, accumulate=True)
-    H.index_put_((ii, jj), Hij, accumulate=True)
-    H.index_put_((jj, ii), Hij.transpose(-1, -2), accumulate=True)
-    b = torch.zeros((F, 7), dtype=verts.dtype, device=verts.device)
-    b.index_add_(0, ii, bi)
-    b.index_add_(0, jj, bj)
+    pairs = torch.cat([ii * F + ii, jj * F + jj, ii * F + jj, jj * F + ii])
+    H = segment_sum(torch.cat([Hii, Hjj, Hij, Hij.transpose(-1, -2)]),
+                    segments(pairs, F * F, g.valid.repeat(4)))
+    b = segment_sum(torch.cat([bi, bj]), segments(torch.cat([ii, jj]), F, g.valid.repeat(2)))
+    H = H.reshape(F, F, 7, 7)
     return H.permute(0, 2, 1, 3), b, chi2
 
 
@@ -151,20 +152,21 @@ def optimize(g: PoseGraph, n_iters: int = 20, tau: float = 1e-5,
 
 def _linearize_blocks(g: PoseGraph, verts, huber_delta=None):
     """Per-edge linearization for the matrix-free path: residuals, Jacobians,
-    weights, chi2, gradient b (F, 7) and the block diagonal D (F, 7, 7) of H."""
+    weights, chi2, gradient b (F, 7), the block diagonal D (F, 7, 7) of H and
+    the segment plan `seg` over the edges' endpoints (i, then j)."""
     F = verts.shape[0]
     ii, jj = g.i_idx.long(), g.j_idx.long()
     S_i, S_j = verts[ii], verts[jj]
     r = edge_residual(S_i, S_j, g.meas)
     Ji, Jj = edge_jacobians(S_i, S_j, g.meas)
     w, chi2 = _edge_weights(g, r, huber_delta)
-    b = torch.zeros((F, 7), dtype=verts.dtype, device=verts.device)
-    b.index_add_(0, ii, -torch.einsum("eai,ea,e->ei", Ji, r, w))
-    b.index_add_(0, jj, -torch.einsum("eai,ea,e->ei", Jj, r, w))
-    D = torch.zeros((F, 7, 7), dtype=verts.dtype, device=verts.device)
-    D.index_add_(0, ii, torch.einsum("eai,eaj,e->eij", Ji, Ji, w))
-    D.index_add_(0, jj, torch.einsum("eai,eaj,e->eij", Jj, Jj, w))
-    return dict(r=r, Ji=Ji, Jj=Jj, w=w, chi2=chi2, b=b, D=D)
+    # the plan of every sum over the endpoints; invalid edges weigh 0
+    seg = segments(torch.cat([ii, jj]), F, torch.cat([g.valid, g.valid]))
+    b = segment_sum(-torch.cat([torch.einsum("eai,ea,e->ei", Ji, r, w),
+                                torch.einsum("eai,ea,e->ei", Jj, r, w)]), seg)
+    D = segment_sum(torch.cat([torch.einsum("eai,eaj,e->eij", Ji, Ji, w),
+                               torch.einsum("eai,eaj,e->eij", Jj, Jj, w)]), seg)
+    return dict(r=r, Ji=Ji, Jj=Jj, w=w, chi2=chi2, b=b, D=D, seg=seg)
 
 
 def _hessian_matvec(g: PoseGraph, lin, lam, free, x):
@@ -174,18 +176,18 @@ def _hessian_matvec(g: PoseGraph, lin, lam, free, x):
     xf = torch.where(free[:, None], x, 0.0)
     ge = lin["w"][:, None] * (torch.einsum("eai,ei->ea", lin["Ji"], xf[ii])
                               + torch.einsum("eai,ei->ea", lin["Jj"], xf[jj]))
-    y = torch.zeros_like(x)
-    y.index_add_(0, ii, torch.einsum("eai,ea->ei", lin["Ji"], ge))
-    y.index_add_(0, jj, torch.einsum("eai,ea->ei", lin["Jj"], ge))
+    y = segment_sum(torch.cat([torch.einsum("eai,ea->ei", lin["Ji"], ge),
+                               torch.einsum("eai,ea->ei", lin["Jj"], ge)]), lin["seg"])
     y = torch.where(free[:, None], y + lam * xf, 0.0)
     return y + torch.where(free[:, None], 0.0, x)
 
 
 def optimize_cg(g: PoseGraph, n_iters: int = 20, tau: float = 1e-5, max_cg_iters: int = 100,
-                rtol: float = 1e-8, huber_delta=None) -> PoseGraphResult:
+                rtol: float = 1e-8, huber_delta=None, check_every: int | None = None) -> PoseGraphResult:
     """`optimize`'s LM schedule with each damped step (H + lam I) dx = b
     solved by block-Jacobi PCG, matrix-free. `n_iters_run` counts the LM
-    iterations that ran before the stall rule froze the loop."""
+    iterations that ran before the stall rule froze the loop; `check_every`
+    lets each PCG solve end once converged (`cg_ba.pcg`)."""
     dt, dev = g.vertices.dtype, g.vertices.device
     free = ~g.fixed
     eye7 = torch.eye(7, dtype=dt, device=dev)
@@ -208,7 +210,7 @@ def optimize_cg(g: PoseGraph, n_iters: int = 20, tau: float = 1e-5, max_cg_iters
         dx, _ = cg_ba.pcg(
             lambda x: _hessian_matvec(g, lin, lam, free, x),
             lambda r: torch.where(free[:, None], (D_inv * r[:, None, :]).sum(-1), 0.0),
-            b, max_cg_iters, rtol)
+            b, max_cg_iters, rtol, check_every)
         verts_new = sim3.compose(sim3.exp(dx), verts)
         chi2_cur, chi2_new = lin["chi2"], _chi2(g, verts_new, huber_delta)
         rho = lm.gain_ratio(chi2_cur, chi2_new, dx.reshape(-1), b.reshape(-1), lam)

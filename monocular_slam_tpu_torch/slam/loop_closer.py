@@ -51,9 +51,14 @@ from monocular_slam_tpu_torch.utils.scatter import mark, segment_min, set_last, 
 # BA) and 100 (pose graph). On its own rendered revisit course
 # (chip_smoke.py's loop state, perturbed) those counts end 10% and 13% of
 # the dense route's correction away from it; 100 and 200 steps end 0.4%
-# and 1.4% away (chip_profile.py cgdense, H100), so the port runs these.
+# and 1.4% away (chip_profile.py cgdense, H100). At the closures of the
+# 1000-frame long run (chip_profile.py cgdense long) 100 steps keep global
+# BA within 0.6% of the dense Schur at F 1032, but the pose graph at K_pad
+# 256-512 needs more: 200 steps end 7-33% of the dense correction away, 400
+# up to 11%, 800 at most 0.5% (a chain's conditioning, not float32: float64
+# at 200 steps ends as far away), so the port runs 800.
 GLOBAL_BA_CG_ITERS = 100
-POSE_GRAPH_CG_ITERS = 200
+POSE_GRAPH_CG_ITERS = 800
 
 
 @dataclass

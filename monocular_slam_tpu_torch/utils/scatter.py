@@ -7,10 +7,26 @@ arbitrary (on CUDA, run-to-run varying) winner. `set_last` reproduces the
 reference's rule exactly: per target, the kept update with the largest
 position wins, decided with one `scatter_reduce("amax")` on positions; the
 losers and the dropped updates are routed to a dump row that is sliced off.
+
+Float segment sums are deterministic too. A float `index_add_` on the card
+adds with atomics, so the last bits of a sum change from run to run.
+`segment_sum` sorts the ids once (`segments`, a stable sort: equal ids keep
+their order) and reduces each segment's contiguous run of values with
+`torch.segment_reduce`, which adds a segment's values one after another in
+that order, on the CPU as on the card. That is `index_add_`'s order on the
+CPU, so the CPU sums keep their bits. A segment's run is one thread's
+serial loop on the card, so a plan drops the rows that add nothing (`keep`):
+the solvers' padded edge slots share one id (point 0 of a state's edge
+list holds most of its 10^5 slots), and summing them took seconds per
+solve. A solver builds the plan once per linearization and reuses it for
+every sum over the same ids (a PCG step never sorts). Integer sums are
+exact in any order and keep `index_add_`.
 No step here syncs with the host.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -64,15 +80,40 @@ def segment_min(vals: torch.Tensor, seg: torch.Tensor, num: int) -> torch.Tensor
     return out[:num]
 
 
-def segment_sum(vals: torch.Tensor, seg: torch.Tensor, num: int) -> torch.Tensor:
-    """`jax.ops.segment_sum` over dim 0 (out-of-range ids dropped)."""
+class Segments(NamedTuple):
+    """The plan of a deterministic segment sum over one id vector."""
+
+    order: torch.Tensor  # (E,) positions sorted by id, stably; dropped rows last
+    offsets: torch.Tensor  # (num + 1,) run starts and the end of the last run
+
+
+def segments(seg: torch.Tensor, num: int, keep=None) -> Segments:
+    """The plan for sums over `num` segments with ids `seg` (E,); rows with
+    an id outside [0, num), or not in `keep` (E,) bool, are dropped. Drop
+    only rows whose values are zero, or the sums change."""
     seg = seg.long()
     ok = (seg >= 0) & (seg < num)
-    safe = torch.where(ok, seg, num)
-    out = torch.zeros((num + 1,) + tuple(vals.shape[1:]), dtype=vals.dtype,
-                      device=vals.device)
-    out.index_add_(0, safe, vals)
-    return out[:num]
+    safe = torch.where(ok if keep is None else ok & keep, seg, num)
+    counts = torch.zeros(num + 1, dtype=torch.long, device=seg.device)
+    counts.index_add_(0, safe, torch.ones_like(safe))
+    return Segments(torch.argsort(safe, stable=True),
+                    torch.cat([counts.new_zeros(1), counts[:num].cumsum(0)]))
+
+
+def segment_sum(vals: torch.Tensor, seg, num: int | None = None) -> torch.Tensor:
+    """`jax.ops.segment_sum` over dim 0 (out-of-range ids dropped). `seg`
+    is an id tensor with its segment count `num`, or a `Segments` plan."""
+    if isinstance(seg, Segments):
+        plan = seg
+    elif not vals.is_floating_point():
+        seg = seg.long()
+        safe = torch.where((seg >= 0) & (seg < num), seg, num)
+        out = torch.zeros((num + 1,) + tuple(vals.shape[1:]), dtype=vals.dtype,
+                          device=vals.device)
+        return out.index_add_(0, safe, vals)[:num]
+    else:
+        plan = segments(seg, num)
+    return torch.segment_reduce(vals[plan.order], "sum", offsets=plan.offsets, unsafe=True)
 
 
 def topk_stable(x: torch.Tensor, k: int):

@@ -379,3 +379,165 @@ def test_cli_on_cuda(cuda, tmp_path):
     ts, poses = trajectory.read_tum(str(tmp_path / "out" / "trajectory.txt"))
     assert len(ts) == summary["tracked"] and np.isfinite(poses).all()
     assert ply.read_ply_points(str(tmp_path / "out" / "map.ply")).shape[0] == summary["map_points"]
+
+
+# --- deterministic sums and the distributed solvers on the card ------------------------
+
+def _cg_problem(dev, F=64, P=20000, obs=1500, seed=5):
+    """A seeded float32 BA problem: F cameras on an arc, obs random points
+    each (duplicate camera-point pairs included), 0.5 px noise."""
+    from monocular_slam_tpu_torch.geometry import se3, so3
+    from monocular_slam_tpu_torch.optim import ba
+
+    rng = np.random.RandomState(seed)
+    X = rng.uniform(-3, 3, (P, 3)) + [0.0, 0.0, 12.0]
+    rot = torch.as_tensor([[0.0, 0.01 * i, 0.0] for i in range(F)], dtype=torch.float64)
+    poses = se3.from_Rt(so3.exp(rot), torch.as_tensor([[-0.1 * i, 0.0, 0.0] for i in range(F)],
+                                                      dtype=torch.float64))
+    cam = np.repeat(np.arange(F), obs)
+    pt = rng.randint(0, P, F * obs)
+    Xc = se3.apply(poses[torch.as_tensor(cam)], torch.as_tensor(X[pt])).numpy()
+    k = np.array([500.0, 500.0, 320.0, 240.0])
+    uv = k[:2] * Xc[:, :2] / Xc[:, 2:] + k[2:] + 0.5 * rng.randn(F * obs, 2)
+    fixed = np.zeros(F, bool)
+    fixed[:2] = True
+    p0 = se3.compose(se3.exp(torch.as_tensor(0.003 * rng.randn(F, 6))), poses)
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    return ba.BAProblem(f32(p0), f32(X + 0.05 * rng.randn(P, 3)), f32(np.tile(k, (F, 1))),
+                        torch.as_tensor(cam, device=dev), torch.as_tensor(pt, device=dev), f32(uv),
+                        torch.ones(F * obs, device=dev), torch.ones(F * obs, dtype=torch.bool, device=dev),
+                        torch.as_tensor(fixed, device=dev))
+
+
+def _drifted_graph(dev, n=2000, seed=6):
+    from monocular_slam_tpu_torch.geometry import sim3, so3
+    from monocular_slam_tpu_torch.optim import pose_graph
+
+    ang = np.arange(n) * (2 * np.pi / (n / 2))
+    verts = sim3.pack(so3.exp(torch.as_tensor(np.stack([0 * ang, ang, 0 * ang], -1), dtype=torch.float32)),
+                      torch.as_tensor(np.stack([np.sin(ang) * 20, 0 * ang, np.cos(ang) * 20], -1),
+                                      dtype=torch.float32), torch.ones(n)).to(dev)
+    step = 0.01 * np.random.RandomState(seed).randn(n, 7)
+    step[0] = 0.0
+    est = sim3.compose(sim3.exp(torch.as_tensor(np.cumsum(step, 0), dtype=torch.float32, device=dev)),
+                       verts)
+    li = np.arange(n // 2, n, 20)
+    lj = li - n // 2
+    meas = sim3.compose(verts[li], sim3.inverse(verts[lj]))
+    return pose_graph.sequential_graph(est, torch.ones(n, dtype=torch.bool, device=dev), li, lj, meas)
+
+
+def test_segment_sum_repeats_on_cuda(cuda):
+    """The planned float32 sum over 1.5M values into 1000 segments gives the
+    same bits on every call and matches a float64 CPU sum to 1e-5 relative."""
+    from monocular_slam_tpu_torch.utils import scatter
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    vals = torch.randn((1_500_000, 6), generator=g, device=cuda)
+    seg = torch.randint(0, 1000, (1_500_000,), generator=g, device=cuda)
+    plan = scatter.segments(seg, 1000)
+    first = scatter.segment_sum(vals, plan)
+    for _ in range(3):
+        assert torch.equal(scatter.segment_sum(vals, plan), first)
+    ref = torch.zeros((1000, 6), dtype=torch.float64).index_add_(0, seg.cpu(), vals.double().cpu())
+    torch.testing.assert_close(first.double().cpu(), ref, rtol=1e-5, atol=1e-3)
+
+
+def test_cg_solvers_repeat_bit_for_bit_on_cuda(cuda):
+    """Two runs of one CG BA (96,000 edges) and of one CG pose graph (2000
+    keyframes) on the card give the same bits."""
+    from monocular_slam_tpu_torch.optim import cg_ba, pose_graph
+
+    prob = _cg_problem(cuda)
+    a, b = (cg_ba.bundle_adjust_cg(prob, n_iters=5, max_cg_iters=100) for _ in range(2))
+    assert torch.equal(a.poses, b.poses) and torch.equal(a.points, b.points)
+    assert torch.equal(a.chi2_history, b.chi2_history)
+    g = _drifted_graph(cuda)
+    a, b = (pose_graph.optimize_cg(g, n_iters=5, max_cg_iters=200) for _ in range(2))
+    assert torch.equal(a.vertices, b.vertices) and float(a.chi2_history[-1]) < float(a.chi2_initial)
+
+
+def test_loop_session_repeats_bit_for_bit_on_cuda(cuda):
+    """A short loop-closing session (24 frames, global BA forced onto the
+    CG route) run twice: the same trajectory, bit for bit."""
+    from monocular_slam_tpu_torch.datasets import render
+    from monocular_slam_tpu_torch.retrieval import vocabulary
+    from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
+    from monocular_slam_tpu_torch.slam.loop_closer import LoopCloser
+    from monocular_slam_tpu_torch.slam.session import SlamSession
+
+    imgs, _, k = render.render_sequence(seed=3, n_frames=24, wh=(320, 240), device=cuda)
+    cfg = SlamConfig(max_frames=32, max_points=4000, image_wh=(320, 240),
+                     frontend=FrontendConfig(n_features=600))
+    voc = vocabulary.load_default()
+    runs = []
+    for _ in range(2):
+        lc = LoopCloser(voc, cfg)
+        sess = SlamSession(cfg, seed=0, loop_closer=lc)
+        for i in range(24):
+            sess.add_frame(imgs[i], k, i / 30.0)
+        sess.flush()
+        st = sess.state
+        kfs = [f for f in sess._keyframes if bool(st.pose_valid[f])]
+        pad = torch.zeros(st.poses.shape[0], dtype=torch.long, device=cuda)
+        pad[: len(kfs)] = torch.as_tensor(kfs, device=cuda)
+        with torch.inference_mode():
+            gba = lc._gba_impl(st, pad, len(kfs), lc.global_ba_solver(cg=True))
+        runs.append((sess.trajectory()[0], gba.poses.cpu(), gba.points.cpu()))
+    assert np.array_equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1]) and torch.equal(runs[0][2], runs[1][2])
+
+
+@pytest.fixture(scope="module")
+def nccl_world():
+    """A one-rank NCCL process group in this process."""
+    import socket
+
+    import torch.distributed as dist
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    yield
+    dist.destroy_process_group()
+
+
+def test_nccl_world1_distributed_solvers_match(cuda, nccl_world):
+    """At world size 1 through NCCL: the sharded CG BA against
+    `bundle_adjust_cg` (chi2 histories to rtol 1e-5, poses to 1e-5), its
+    dense route against `ba.bundle_adjust`, the sharded pose graph against
+    `optimize_cg`; one (F, 6) all-reduce per PCG step and one for the
+    reduced gradient of each LM iteration, counted."""
+    import torch.distributed as dist
+
+    from monocular_slam_tpu_torch.optim import ba, cg_ba, pose_graph
+    from monocular_slam_tpu_torch.parallel import distributed, sharded_ba, sharded_pose_graph
+    from monocular_slam_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1)
+    assert dist.get_backend(mesh.get_group("model")) == "nccl"
+    prob = _cg_problem(cuda)
+    F = prob.poses.shape[0]
+    single = cg_ba.bundle_adjust_cg(prob, n_iters=5, max_cg_iters=50)
+    with distributed.record_collectives() as rec:
+        shard = sharded_ba.distributed_bundle_adjust(prob, mesh, n_iters=5, solver="cg",
+                                                     max_cg_iters=50)
+    torch.testing.assert_close(shard.chi2_history, single.chi2_history, rtol=1e-5, atol=0)
+    torch.testing.assert_close(shard.poses, single.poses, rtol=0, atol=1e-5)
+    assert sum(c["elements"] == 6 * F for c in rec) == 5 * (50 + 1)
+    small = _cg_problem(cuda, F=16, P=2000, obs=300)
+    dense = sharded_ba.distributed_bundle_adjust(small, mesh, n_iters=5, solver="dense")
+    ref = ba.bundle_adjust(small, n_iters=5)
+    torch.testing.assert_close(dense.chi2_history, ref.chi2_history, rtol=1e-5, atol=0)
+    torch.testing.assert_close(dense.poses, ref.poses, rtol=0, atol=1e-5)
+    g = _drifted_graph(cuda, n=500)
+    a = sharded_pose_graph.distributed_optimize(g, mesh, n_iters=5, max_cg_iters=100)
+    b = pose_graph.optimize_cg(g, n_iters=5, max_cg_iters=100)
+    torch.testing.assert_close(a.chi2_history, b.chi2_history, rtol=1e-5, atol=0)
+    torch.testing.assert_close(a.vertices, b.vertices, rtol=0, atol=1e-5)

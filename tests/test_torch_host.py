@@ -328,7 +328,7 @@ def test_state_snapshots_cross_read(tmp_path):
         assert a.dtype == d[f].dtype, f
         np.testing.assert_array_equal(a, d[f], err_msg=f)
     jsnap.save_state(str(tmp_path / "ref.npz"), ref)
-    back = tstate.state_to_numpy(snapshot.load_state(str(tmp_path / "ref.npz")))
+    back = tstate.state_to_numpy(snapshot.load_state(str(tmp_path / "ref.npz"), device="cpu"))
     for f in d:
         assert back[f].dtype == d[f].dtype, f
         np.testing.assert_array_equal(back[f], d[f], err_msg=f)
@@ -352,7 +352,7 @@ def test_ba_problem_snapshots_cross_read(tmp_path):
                              BAProblem(**{f: torch.as_tensor(v) for f, v in fields.items()}))
     ref = jsnap.load_ba_problem(str(tmp_path / "p.npz"))
     jsnap.save_ba_problem(str(tmp_path / "r.npz"), JProblem(**{f: getattr(ref, f) for f in fields}))
-    back = snapshot.load_ba_problem(str(tmp_path / "r.npz"))
+    back = snapshot.load_ba_problem(str(tmp_path / "r.npz"), device="cpu")
     for f, v in fields.items():
         np.testing.assert_array_equal(np.asarray(getattr(ref, f)), v, err_msg=f)
         np.testing.assert_array_equal(getattr(back, f).numpy(), v, err_msg=f)

@@ -2,7 +2,8 @@
 none of them): a fresh interpreter in which importing any of them fails
 imports every module of `monocular_slam_tpu_torch` and runs `extract`, a few
 session frames, a prewarmed loop-closing session fed from a frame buffer,
-and the CLI on a course written by the port's own exporter, on the CPU."""
+the CLI on a course written by the port's own exporter, a Poisson mesh and
+the sharded BA on a one-rank gloo group, on the CPU."""
 
 import os
 import subprocess
@@ -67,6 +68,30 @@ summary = json.loads(out[-1])
 assert summary["frames"] == 3 and summary["tracked"] == 3 and "ate_rmse" in summary, summary
 assert os.path.exists(os.path.join(root, "out", "trajectory.txt"))
 assert not any(k.split(".")[0] in ("PIL", "matplotlib") for k, v in sys.modules.items() if v)
+# meshing and the distributed solvers
+from monocular_slam_tpu_torch.viz import mesh
+d = torch.randn(500, 3, dtype=torch.float64)
+d = d / d.norm(dim=1, keepdim=True)
+v, t = mesh.poisson_mesh(d, normals=d, depth=4)
+assert t.shape[0] > 100 and mesh.mesh_boundary_edges(t) == 0
+import torch.distributed as dist
+from monocular_slam_tpu_torch.parallel import distributed, sharded_ba
+from monocular_slam_tpu_torch.parallel.mesh import make_mesh
+assert distributed.initialize(num_processes=1) is False and not dist.is_initialized()
+dist.init_process_group("gloo", init_method="file://" + os.path.join(tempfile.mkdtemp(), "rdv"),
+                        world_size=1, rank=0)
+from monocular_slam_tpu_torch.geometry import camera, se3
+from monocular_slam_tpu_torch.optim import ba
+poses = torch.as_tensor(poses[:3], dtype=torch.float32)
+X = torch.rand((40, 3)) + torch.tensor([0.0, 0.0, 4.0])
+kk = torch.as_tensor(np.asarray(k), dtype=torch.float32).reshape(1, 4).repeat(3, 1)
+cam, pt = torch.arange(120) // 40, torch.arange(120) % 40
+uv = camera.project(kk[cam], se3.apply(poses[cam], X[pt]))
+prob = ba.BAProblem(poses, X + 0.01, kk, cam, pt, uv, torch.ones(120),
+                    torch.ones(120, dtype=torch.bool), torch.tensor([True, True, False]))
+res = sharded_ba.distributed_bundle_adjust(prob, make_mesh(device="cpu"), n_iters=3)
+assert float(res.chi2_history[-1]) < float(res.chi2_initial)
+dist.destroy_process_group()
 print("modules", len(names))
 """
 
