@@ -17,7 +17,8 @@ route's largest move, and the scale of a Sim(3) fit of the CG keyframe
 centres onto the dense ones), then the scale phase's `correct` comparison
 with the CG pose graph at 100, 200, 300 and 400 PCG steps.
 
-`cgdense long`: `chip_smoke.run_long` over the full 1000 frames, keeping
+`cgdense long`: `chip_smoke.run_long` over the full 1000 frames at the
+reference's dense/CG switch of the pose graph (128 keyframes), keeping
 the input of every call the loop closer routes to `pose_graph.optimize_cg`
 (K_pad > 128) and to `cg_ba.bundle_adjust_cg` (F*P > 4e6) and its result;
 then each input again through the dense route, `pose_graph.optimize` (the
@@ -39,10 +40,11 @@ call, on an idle card and queued behind a matmul chain of ~0.2 s (if a call
 returns before the chain ends, it does not wait for the card), and
 `torch.profiler`'s kernels and host events of 20 calls.
 
-`cgsteps`: `chip_smoke.run_long` (400 frames) twice in one process, the
-loop closer's CG routes at the reference's PCG step counts (50 for global
-BA, 100 for the pose graph) and at the port's (`GLOBAL_BA_CG_ITERS`,
-`POSE_GRAPH_CG_ITERS`): tracked, ATE, closures, closure stage seconds.
+`cgsteps`: `chip_smoke.run_long` (400 frames, switch at 128) twice in
+one process, the loop closer's CG routes at the reference's PCG step
+counts (50 for global BA, 100 for the pose graph) and at the port's
+(`GLOBAL_BA_CG_ITERS`, `POSE_GRAPH_CG_ITERS`): tracked, ATE, closures,
+closure stage seconds.
 
 `cli`: `chip_smoke.py`'s cli course (200 frames of the long run's orbit
 written as a TUM directory) through `run.main` in this process with every
@@ -274,7 +276,8 @@ def cg_dense_long(smi: str) -> int:
     pose_graph.optimize_cg = keep("optimize_cg", plain[0])
     cg_ba.bundle_adjust_cg = keep("bundle_adjust_cg", plain[1])
     try:
-        out, sess = cs.run_long(LONG_RUN_FRAMES)
+        with cs.reference_pose_graph_switch():
+            out, sess = cs.run_long(LONG_RUN_FRAMES)
     finally:
         pose_graph.optimize_cg, cg_ba.bundle_adjust_cg = plain
     print(json.dumps({k: out[k] for k in ("frames", "tracked", "ate_m", "closures", "corrected")}),
@@ -339,9 +342,8 @@ def cg_dense_long(smi: str) -> int:
 
 def pg_sweep(kept) -> None:
     """The CG pose graph on the first, a middle and the last of the long
-    run's CG graphs at more PCG steps: fixed trip counts, and a convergence
-    stop (`check_every` 50 under a cap of 3200) at three tolerances on the
-    last graph; float64 at the closer's count on the last graph. Per run:
+    run's CG graphs at more PCG steps (fixed trip counts), and float64 at
+    the closer's count on the last graph. Per run:
     seconds, PCG steps run over the 20 LM iterations, the pose ratio to the
     dense route."""
     from monocular_slam_tpu_torch.optim import cg_ba, pose_graph
@@ -366,9 +368,6 @@ def pg_sweep(kept) -> None:
                 moved = (dense.vertices - g.vertices).abs().max().item()
                 variants = [(f"fixed {m}", g, dict(kw, max_cg_iters=m)) for m in (400, 800, 1600)]
                 if idx == picks[-1]:
-                    variants += [(f"stop rtol {t:g}", g, dict(kw, max_cg_iters=3200, rtol=t,
-                                                              check_every=50))
-                                 for t in (1e-4, 1e-5, 1e-6)]
                     variants.append((f"float64 {POSE_GRAPH_CG_ITERS}", g._replace(
                         vertices=g.vertices.double(), meas=g.meas.double(),
                         weight=g.weight.double()), dict(kw, max_cg_iters=POSE_GRAPH_CG_ITERS)))
@@ -486,7 +485,8 @@ def cg_steps(smi: str) -> int:
     try:
         for steps in ((50, 100), port):
             loop_closer.GLOBAL_BA_CG_ITERS, loop_closer.POSE_GRAPH_CG_ITERS = steps
-            out, _ = cs.run_long(cs.LONG_FRAMES)
+            with cs.reference_pose_graph_switch():
+                out, _ = cs.run_long(cs.LONG_FRAMES)
             print(json.dumps({"pcg_steps_global_ba_pose_graph": steps,
                               **{k: out[k] for k in ("tracked", "ate_m", "fps", "closures",
                                                      "corrected", "closure_s_per_run")},

@@ -81,7 +81,9 @@ benchmark's full width and checks them:
                 pose graph and the 60-frame session each run twice, bit for
                 bit the same;
  11. long     — benchmarks/long_run.py's configuration (`run_long`) cut to
-                LONG_FRAMES frames: fails on a non-finite pose, below 95%
+                LONG_FRAMES frames, with the pose graph's dense/CG switch
+                at the reference's 128 keyframes (the port's default, 512,
+                is past this run): fails on a non-finite pose, below 95%
                 tracked, below 2 closures, if `optimize_cg` or
                 `bundle_adjust_cg` was never called, if no feature slot was
                 evicted, unless K1 launched once per frame and K2 at least
@@ -786,11 +788,12 @@ def _timed_solve(fn):
     return res, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**20
 
 
-def device_ops(fn) -> int:
+def device_ops(fn, summarized: bool = False):
     """Operations (kernels, copies, memsets) one call of fn puts on the card,
     counted by `torch.profiler` from its raw device events (building its
     per-event summaries took minutes for the 10^6 operations of a CG
-    correction)."""
+    correction). With `summarized`, (raw count, the count summed over
+    `key_averages()`), to show that the two counters agree."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -798,7 +801,10 @@ def device_ops(fn) -> int:
         fn()
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    return sum(1 for e in prof.profiler.kineto_results.events() if e.device_type() == cuda)
+    raw = sum(1 for e in prof.profiler.kineto_results.events() if e.device_type() == cuda)
+    if not summarized:
+        return raw
+    return raw, sum(e.count for e in prof.key_averages() if e.device_type == cuda)
 
 
 def _state_diff(a, b, ref) -> dict:
@@ -819,7 +825,8 @@ def _cg_vs_dense(sess, closure) -> dict:
     closer's dense and CG solvers (`global_ba_solver`) after a 1 cm
     perturbation of the keyframes, and
     `correct` of the first closure under a perturbed Sim3 with keyframe
-    buckets of 128 (dense) and 256 (CG). Per pair: the routes' difference,
+    buckets of 128 (dense) and 256 (CG, at the reference's dense/CG switch,
+    `reference_pose_graph_switch`). Per pair: the routes' difference,
     how far the dense route moved the state, each solve's chi2 (initial,
     final) and seconds, and each route's device operations per call."""
     import dataclasses
@@ -860,7 +867,7 @@ def _cg_vs_dense(sess, closure) -> dict:
     pose_graph.optimize = keep("pg_dense", plain[0])
     pose_graph.optimize_cg = keep("pg_cg", plain[1])
     try:
-        with torch.inference_mode():
+        with torch.inference_mode(), reference_pose_graph_switch():
             dense, t_d, _ = _timed_solve(lambda: lc._gba_impl(
                 st, pad, len(kfs), keep("ba_dense", lc.global_ba_solver(cg=False))))
             cg, t_c, _ = _timed_solve(lambda: lc._gba_impl(
@@ -886,12 +893,12 @@ def _cg_vs_dense(sess, closure) -> dict:
     out["correct"] = {"closure": [i, j], **row(sd, sc, state, t_d, t_c, ("pg_dense", "pg_cg"))}
     # device operations per closure on each route: the solvers' trip counts
     # are fixed, so these are the long run's counts per closure too
-    with torch.inference_mode():
+    with torch.inference_mode(), reference_pose_graph_switch():
         out["device_ops_per_call"] = {
             "global_ba_dense": device_ops(lambda: lc._gba_impl(
                 st, pad, len(kfs), lc.global_ba_solver(cg=False))),
-            "global_ba_cg": device_ops(lambda: lc._gba_impl(
-                st, pad, len(kfs), lc.global_ba_solver(cg=True))),
+            "global_ba_cg_raw_and_summarized": device_ops(lambda: lc._gba_impl(
+                st, pad, len(kfs), lc.global_ba_solver(cg=True)), summarized=True),
             **{f"correct_{name}": device_ops(lambda c=c: c.correct(state, i, j, S,
                                                                   keyframes=list(sess._keyframes)))
                for name, c in closers.items()},
@@ -1395,8 +1402,25 @@ def run_long(n: int, dev="cuda") -> tuple[dict, object]:
     return out, sess
 
 
+@contextlib.contextmanager
+def reference_pose_graph_switch():
+    """The loop closer's pose graph at the reference's dense/CG switch, 128
+    keyframes, in place of the port's `POSE_GRAPH_DENSE_MAX` (512, past a
+    1000-frame run), so that a shorter run or a 256-keyframe bucket reaches
+    the CG route."""
+    from monocular_slam_tpu_torch.slam import loop_closer
+
+    port = loop_closer.POSE_GRAPH_DENSE_MAX
+    loop_closer.POSE_GRAPH_DENSE_MAX = 128
+    try:
+        yield
+    finally:
+        loop_closer.POSE_GRAPH_DENSE_MAX = port
+
+
 def phase_long() -> dict:
-    out, _ = run_long(LONG_FRAMES)
+    with reference_pose_graph_switch():
+        out, _ = run_long(LONG_FRAMES)
     log("[long] " + json.dumps(out))
     n = out["frames"]
     log(f"[long] {n} frames: tracked {out['tracked']}, ATE {out['ate_m'] * 100:.2f} cm "

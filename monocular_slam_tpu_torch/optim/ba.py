@@ -124,10 +124,13 @@ def _chi2_graph(prob: BAProblem, poses, points, delta: float):
     return _edge_weights(prob, r, delta)[1]
 
 
-def _schur_solve(prob: BAProblem, lin, lam):
+def _schur_solve(prob: BAProblem, lin, lam, reduce=lm.no_reduce):
     """Damped Schur-reduced solve with a dense (F*6, F*6) Cholesky; a failed
     factorization yields NaN, as the reference's `cho_factor` does.
-    Returns (dxp (F, 6), dxl (P, 3), b_red)."""
+    Returns (dxp (F, 6), dxl (P, 3), b_red). With `reduce`, `prob` holds one
+    rank's landmarks and their edges, `lin`'s pose blocks are already summed
+    over the ranks, and the cross term and the reduced gradient are summed
+    over them too (`parallel/sharded_ba.py`)."""
     F, P = lin["Hpp"].shape[0], lin["Hll"].shape[0]
     dt, dev = lin["Hpp"].dtype, lin["Hpp"].device
     cam, pt = prob.cam_idx.long(), prob.pt_idx.long()
@@ -137,11 +140,11 @@ def _schur_solve(prob: BAProblem, lin, lam):
     Y_e = _small_mm(lin["W_e"], Hll_inv[pt])  # (E, 6, 3)
 
     U, Y = scatter_pose_point(prob, lin["W_e"], Y_e)
-    b_red = lin["bp"] - segment_sum(_small_mv(Y_e, lin["bl"][pt]), cam_seg)
+    b_red = lin["bp"] - reduce(segment_sum(_small_mv(Y_e, lin["bl"][pt]), cam_seg))
     ar = torch.arange(F, device=dev)
     S = torch.zeros((F, 6, F, 6), dtype=dt, device=dev)
     S[ar, :, ar, :] = Hpp_d
-    S = S.reshape(F * 6, F * 6) - Y @ U.T
+    S = S.reshape(F * 6, F * 6) - reduce(Y @ U.T)
     del U, Y
 
     free = ~prob.fixed

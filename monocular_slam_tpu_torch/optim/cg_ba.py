@@ -27,6 +27,7 @@ import torch
 
 from monocular_slam_tpu_torch.optim import ba as ba_mod
 from monocular_slam_tpu_torch.optim.ba import _small_mv
+from monocular_slam_tpu_torch.optim.lm import no_reduce
 from monocular_slam_tpu_torch.utils.linalg import inv3x3
 from monocular_slam_tpu_torch.utils.scatter import segment_sum
 
@@ -46,31 +47,31 @@ def _wt_mv(W_e, x_e):
     return (W_e * x_e[..., None]).sum(-2)
 
 
-def schur_matvec(prob: ba_mod.BAProblem, lin, Hll_inv, lam, free, x):
-    """y = S x, x and y (F, 6); fixed poses act as identity rows."""
+def schur_matvec(prob: ba_mod.BAProblem, lin, Hll_inv, lam, free, x, reduce=no_reduce):
+    """y = S x, x and y (F, 6); fixed poses act as identity rows. `reduce`
+    sums the cross term's camera sums over the ranks that share the
+    landmarks (`parallel/sharded_ba.py`)."""
     cam, pt = prob.cam_idx.long(), prob.pt_idx.long()
     xf = _gauge_mask(x, free)
     t1 = _small_mv(lin["Hpp"], xf) + lam * xf
     s_p = segment_sum(_wt_mv(lin["W_e"], xf[cam]), lin["pt_seg"])
     y_p = _small_mv(Hll_inv, s_p)
-    t2 = segment_sum(_small_mv(lin["W_e"], y_p[pt]), lin["cam_seg"])
+    t2 = reduce(segment_sum(_small_mv(lin["W_e"], y_p[pt]), lin["cam_seg"]))
     return _gauge_mask(t1 - t2, free) + torch.where(free[:, None], 0.0, x)
 
 
-def schur_diag_blocks(prob: ba_mod.BAProblem, lin, Hll_inv, lam):
+def schur_diag_blocks(prob: ba_mod.BAProblem, lin, Hll_inv, lam, reduce=no_reduce):
     """The 6x6 diagonal blocks of the damped Schur complement,
     D_f = Hpp_d[f] - sum_{e: cam(e) = f} W_e Hll_d^-1[pt(e)] W_e^T."""
     W = lin["W_e"]
     WHW_e = torch.matmul(torch.matmul(W, Hll_inv[prob.pt_idx.long()]), W.transpose(-1, -2))
     eye6 = torch.eye(6, dtype=W.dtype, device=W.device)
-    return lin["Hpp"] + lam * eye6 - segment_sum(WHW_e, lin["cam_seg"])
+    return lin["Hpp"] + lam * eye6 - reduce(segment_sum(WHW_e, lin["cam_seg"]))
 
 
-def pcg(matvec, precond_apply, b, max_iters: int, rtol: float, check_every: int | None = None):
+def pcg(matvec, precond_apply, b, max_iters: int, rtol: float):
     """Preconditioned conjugate gradient from x = 0 with a fixed trip count
-    and freeze-on-converge. Returns (x, CGStats). With `check_every`, the
-    loop also ends once it has frozen, looking every `check_every` steps
-    (one host sync each); the result is the same bits either way."""
+    and freeze-on-converge. Returns (x, CGStats)."""
     bnorm = torch.sqrt((b * b).sum()) + 1e-30
     x = torch.zeros_like(b)
     r = b
@@ -78,7 +79,7 @@ def pcg(matvec, precond_apply, b, max_iters: int, rtol: float, check_every: int 
     rz = (r * z).sum()
     it = torch.zeros((), dtype=torch.int32, device=b.device)
     done = torch.zeros((), dtype=torch.bool, device=b.device)
-    for k in range(max_iters):
+    for _ in range(max_iters):
         Ap = matvec(p)
         pAp = (p * Ap).sum()
         alpha = rz / torch.where(pAp == 0, 1e-30, pAp)
@@ -92,15 +93,16 @@ def pcg(matvec, precond_apply, b, max_iters: int, rtol: float, check_every: int 
         x, r, p, rz = (torch.where(done, a, a_n) for a, a_n in ((x, x_n), (r, r_n), (p, p_n), (rz, rz_n)))
         it = it + (~done).to(torch.int32)
         done = done | (rel < rtol) | ~torch.isfinite(rel)
-        if check_every and (k + 1) % check_every == 0 and bool(done):
-            break
     return x, CGStats(it, torch.sqrt((r * r).sum()) / bnorm)
 
 
-def make_cg_solve_fn(max_cg_iters: int = 100, rtol: float = 1e-8):
+def make_cg_solve_fn(max_cg_iters: int = 100, rtol: float = 1e-8, reduce=no_reduce):
     """solve_fn(prob, lin, lam) -> (dxp, dxl, b_red) for
     `ba.bundle_adjust(..., solve_fn=...)`: block-Jacobi PCG on the Schur
-    complement in place of the dense Cholesky."""
+    complement in place of the dense Cholesky. With `reduce`, `prob` holds
+    one rank's landmarks and their edges, `lin`'s pose blocks are already
+    summed over the ranks, and each camera sum is summed over them too: one
+    (F, 6) `reduce` per PCG step."""
 
     def solve(prob: ba_mod.BAProblem, lin, lam):
         dt, dev = lin["Hpp"].dtype, lin["Hpp"].device
@@ -112,16 +114,18 @@ def make_cg_solve_fn(max_cg_iters: int = 100, rtol: float = 1e-8):
 
         # b_red = bp - W Hll^-1 bl, gauge-masked (the dense path's reduction)
         yb_p = _small_mv(Hll_inv, lin["bl"])
-        b_red = _gauge_mask(lin["bp"] - segment_sum(_small_mv(lin["W_e"], yb_p[pt]), cam_seg), free)
+        wy = reduce(segment_sum(_small_mv(lin["W_e"], yb_p[pt]), cam_seg))
+        b_red = _gauge_mask(lin["bp"] - wy, free)
 
         # fixed poses take an identity block; zero-observation poses keep
         # lam I from the damping. A singular block gives NaN (and a rejected
         # LM step), as the reference's `jnp.linalg.inv` does, without a sync.
         eye6 = torch.eye(6, dtype=dt, device=dev)
-        D = torch.where(free[:, None, None], schur_diag_blocks(prob, lin, Hll_inv, lam), eye6)
+        D = torch.where(free[:, None, None],
+                        schur_diag_blocks(prob, lin, Hll_inv, lam, reduce), eye6)
         D_inv, info = torch.linalg.inv_ex(D)
         D_inv = torch.where((info == 0)[:, None, None], D_inv, float("nan"))
-        matvec = partial(schur_matvec, prob, lin, Hll_inv, lam, free)
+        matvec = partial(schur_matvec, prob, lin, Hll_inv, lam, free, reduce=reduce)
         dxp, _ = pcg(matvec, lambda r: _gauge_mask(_small_mv(D_inv, r), free), b_red,
                      max_cg_iters, rtol)
 

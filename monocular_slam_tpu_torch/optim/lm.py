@@ -31,3 +31,11 @@ def lm_step_accept(lam, nu, rho, accepted):
     lam_new = torch.where(accepted, lam * factor, lam * nu)
     nu_new = torch.where(accepted, torch.full_like(nu, 2.0), nu * 2.0)
     return lam_new, nu_new
+
+
+def no_reduce(*tensors, op: str = "sum"):
+    """The sum (or maximum) of partial results over the ranks that share a
+    problem, for one process: each tensor as it is. The distributed solvers
+    pass `parallel.distributed.all_reduce` over their group in its place;
+    both return a tuple, or the one tensor."""
+    return tensors if len(tensors) > 1 else tensors[0]

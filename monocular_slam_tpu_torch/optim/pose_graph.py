@@ -11,7 +11,7 @@ LM step; a failed factorization yields NaN, which the step rejects, as the
 reference's `cho_factor` does. `optimize_cg` keeps the same LM schedule on
 per-edge blocks and solves each step with block-Jacobi PCG
 (`optim/cg_ba.pcg`), never forming the Hessian: the loop closer's route
-for keyframe graphs past 128 vertices. Every sum over edges is a
+for keyframe graphs past 512 vertices. Every sum over edges is a
 deterministic segment sum (`utils/scatter.py`), so a solve repeats bit for
 bit on the card; the matrix-free path plans its sums once per
 linearization.
@@ -169,30 +169,38 @@ def _linearize_blocks(g: PoseGraph, verts, huber_delta=None):
     return dict(r=r, Ji=Ji, Jj=Jj, w=w, chi2=chi2, b=b, D=D, seg=seg)
 
 
-def _hessian_matvec(g: PoseGraph, lin, lam, free, x):
+def _hessian_matvec(g: PoseGraph, lin, lam, free, x, reduce=lm.no_reduce):
     """y = (H + lam I) x, gauge-masked (fixed rows act as identity), from the
-    edge blocks: O(E) work and memory."""
+    edge blocks: O(E) work and memory. `reduce` sums the edge sums over the
+    ranks that share the edges (`parallel/sharded_pose_graph.py`)."""
     ii, jj = g.i_idx.long(), g.j_idx.long()
     xf = torch.where(free[:, None], x, 0.0)
     ge = lin["w"][:, None] * (torch.einsum("eai,ei->ea", lin["Ji"], xf[ii])
                               + torch.einsum("eai,ei->ea", lin["Jj"], xf[jj]))
-    y = segment_sum(torch.cat([torch.einsum("eai,ea->ei", lin["Ji"], ge),
-                               torch.einsum("eai,ea->ei", lin["Jj"], ge)]), lin["seg"])
+    y = reduce(segment_sum(torch.cat([torch.einsum("eai,ea->ei", lin["Ji"], ge),
+                                      torch.einsum("eai,ea->ei", lin["Jj"], ge)]), lin["seg"]))
     y = torch.where(free[:, None], y + lam * xf, 0.0)
     return y + torch.where(free[:, None], 0.0, x)
 
 
 def optimize_cg(g: PoseGraph, n_iters: int = 20, tau: float = 1e-5, max_cg_iters: int = 100,
-                rtol: float = 1e-8, huber_delta=None, check_every: int | None = None) -> PoseGraphResult:
+                rtol: float = 1e-8, huber_delta=None, reduce=lm.no_reduce) -> PoseGraphResult:
     """`optimize`'s LM schedule with each damped step (H + lam I) dx = b
     solved by block-Jacobi PCG, matrix-free. `n_iters_run` counts the LM
-    iterations that ran before the stall rule froze the loop; `check_every`
-    lets each PCG solve end once converged (`cg_ba.pcg`)."""
+    iterations that ran before the stall rule froze the loop. With `reduce`,
+    `g` holds one rank's edges (all vertices) and every sum over edges is
+    summed over the ranks: the gradient, the diagonal blocks and chi2 once
+    per linearization, one (F, 7) vector per PCG step."""
     dt, dev = g.vertices.dtype, g.vertices.device
     free = ~g.fixed
     eye7 = torch.eye(7, dtype=dt, device=dev)
 
-    lin0 = _linearize_blocks(g, g.vertices, huber_delta)
+    def linearize(verts):
+        lin = _linearize_blocks(g, verts, huber_delta)
+        lin["chi2"], lin["b"], lin["D"] = reduce(lin["chi2"], lin["b"], lin["D"])
+        return lin
+
+    lin0 = linearize(g.vertices)
     st = lm.LMState(lm.init_lambda(torch.diagonal(lin0["D"], dim1=-2, dim2=-1).reshape(-1), tau),
                     torch.tensor(2.0, dtype=dt, device=dev), lin0["chi2"],
                     torch.tensor(0, dtype=torch.int32, device=dev),
@@ -202,17 +210,17 @@ def optimize_cg(g: PoseGraph, n_iters: int = 20, tau: float = 1e-5, max_cg_iters
     chi2_h = []
     for _ in range(n_iters):
         n_run = n_run + (~st.done).to(torch.int32)
-        lin = _linearize_blocks(g, verts, huber_delta)
+        lin = linearize(verts)
         lam = st.lam
         D_inv, info = torch.linalg.inv_ex(torch.where(free[:, None, None], lin["D"] + lam * eye7, eye7))
         D_inv = torch.where((info == 0)[:, None, None], D_inv, float("nan"))
         b = torch.where(free[:, None], lin["b"], 0.0)
         dx, _ = cg_ba.pcg(
-            lambda x: _hessian_matvec(g, lin, lam, free, x),
+            lambda x: _hessian_matvec(g, lin, lam, free, x, reduce),
             lambda r: torch.where(free[:, None], (D_inv * r[:, None, :]).sum(-1), 0.0),
-            b, max_cg_iters, rtol, check_every)
+            b, max_cg_iters, rtol)
         verts_new = sim3.compose(sim3.exp(dx), verts)
-        chi2_cur, chi2_new = lin["chi2"], _chi2(g, verts_new, huber_delta)
+        chi2_cur, chi2_new = lin["chi2"], reduce(_chi2(g, verts_new, huber_delta))
         rho = lm.gain_ratio(chi2_cur, chi2_new, dx.reshape(-1), b.reshape(-1), lam)
         step_ok = (chi2_new < chi2_cur) & torch.isfinite(chi2_new)
         lam_n, nu_n = lm.lm_step_accept(lam, st.nu, rho, step_ok)

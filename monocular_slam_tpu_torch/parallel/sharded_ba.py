@@ -13,11 +13,13 @@
     `torch.where`, so every rank issues the same collectives in the same
     order (no branch on a rank-local value).
 
-Communication per LM iteration: dense, one sum of the (F*6)^2 cross term
-plus O(F); CG, one (F, 6) sum per PCG step plus O(F*36) per linearization.
-Neither depends on the number of landmarks. The points come back in their
-original order with one sum of the zero-filled (P_pad, 3) array, outside
-the LM loop.
+The solves are the single-device ones (`ba._schur_solve`,
+`cg_ba.make_cg_solve_fn`) on the rank's slab, with `distributed.all_reduce`
+over the group as their `reduce`. Communication per LM iteration: dense,
+one sum of the (F*6)^2 cross term plus O(F); CG, one (F, 6) sum per PCG
+step plus O(F*36) per linearization. Neither depends on the number of
+landmarks. The points come back in their original order with one sum of
+the zero-filled (P_pad, 3) array, outside the LM loop.
 """
 
 from __future__ import annotations
@@ -31,11 +33,8 @@ from torch.distributed.device_mesh import DeviceMesh
 from monocular_slam_tpu_torch.geometry import se3
 from monocular_slam_tpu_torch.optim import ba as ba_mod
 from monocular_slam_tpu_torch.optim import cg_ba, lm
-from monocular_slam_tpu_torch.optim.ba import _small_mm, _small_mv
 from monocular_slam_tpu_torch.parallel.distributed import all_reduce
 from monocular_slam_tpu_torch.parallel.mesh import model_axis
-from monocular_slam_tpu_torch.utils.linalg import inv3x3
-from monocular_slam_tpu_torch.utils.scatter import segment_sum
 
 
 class ShardedBAResult(NamedTuple):
@@ -87,11 +86,7 @@ def _sharded_lm(poses, points_l, k, cam_idx_l, pt_idx_l, uv_l, info_l, valid_l, 
                 solver: str = "dense", max_cg_iters: int = 100, cg_rtol: float = 1e-8):
     """One rank's LM program; everything suffixed _l is the rank's block."""
     dtype, dev = poses.dtype, poses.device
-    F = poses.shape[0]
     psum = partial(all_reduce, group)
-    eye3 = torch.eye(3, dtype=dtype, device=dev)
-    eye6 = torch.eye(6, dtype=dtype, device=dev)
-    free = ~fixed
     # edge pt ids -> slab coordinates; foreign edges are invalid by
     # construction (partition_problem groups edges with their owner)
     pt_local = pt_idx_l.long() - shard * slab
@@ -105,64 +100,8 @@ def _sharded_lm(poses, points_l, k, cam_idx_l, pt_idx_l, uv_l, info_l, valid_l, 
         lin["chi2"], lin["Hpp"], lin["bp"] = psum(lin["chi2"], lin["Hpp"], lin["bp"])
         return lin
 
-    def back_substitute(lin, Hll_inv, dxp, mask):
-        wt_dxp = (lin["W_e"] * dxp[cam][..., None]).sum(-2)
-        return _small_mv(Hll_inv, lin["bl"] - segment_sum(mask(wt_dxp), lin["pt_seg"]))
-
-    def schur_solve(lin, lam):
-        def on_valid(a):
-            return torch.where(valid_l.reshape((-1,) + (1,) * (a.dim() - 1)), a, 0.0)
-
-        Hll_inv = inv3x3(lin["Hll"] + lam * eye3)  # (slab, 3, 3) local
-        Y_e = _small_mm(lin["W_e"], Hll_inv[pt_local])  # (E_l, 6, 3)
-        U, Y = ba_mod.scatter_pose_point(local_prob, on_valid(lin["W_e"]), on_valid(Y_e))
-        S_cross = psum(Y @ U.T)
-        ar = torch.arange(F, device=dev)
-        S = torch.zeros((F, 6, F, 6), dtype=dtype, device=dev)
-        S[ar, :, ar, :] = lin["Hpp"] + lam * eye6
-        S = S.reshape(F * 6, F * 6) - S_cross
-        yb_e = _small_mv(Y_e, lin["bl"][pt_local])
-        b_red = lin["bp"] - psum(segment_sum(on_valid(yb_e), lin["cam_seg"]))
-
-        free6 = free.repeat_interleave(6)
-        S = torch.where(free6[:, None] & free6[None, :], S, 0.0)
-        S = S + torch.diag(torch.where(free6, 0.0, 1.0).to(dtype))
-        b_vec = torch.where(free[:, None], b_red, 0.0).reshape(F * 6)
-        L, info = torch.linalg.cholesky_ex(S)
-        dxp = torch.cholesky_solve(b_vec[:, None], L)[:, 0]
-        dxp = torch.where(info == 0, dxp, float("nan")).reshape(F, 6)
-        return dxp, back_substitute(lin, Hll_inv, dxp, on_valid)
-
-    def schur_solve_cg(lin, lam):
-        """Matrix-free block-Jacobi PCG: each S-matvec sums ONE (F, 6)
-        vector over the group; padded edges carry W_e = bl = 0 (their IRLS
-        weight is 0), so they need no mask."""
-        Hll_inv = inv3x3(lin["Hll"] + lam * eye3)
-        yb_p = _small_mv(Hll_inv, lin["bl"])
-        wy_e = _small_mv(lin["W_e"], yb_p[pt_local])
-        b_red = lin["bp"] - psum(segment_sum(wy_e, lin["cam_seg"]))
-        b_red = torch.where(free[:, None], b_red, 0.0)
-
-        WHW_e = torch.matmul(torch.matmul(lin["W_e"], Hll_inv[pt_local]),
-                             lin["W_e"].transpose(-1, -2))
-        D = lin["Hpp"] + lam * eye6 - psum(segment_sum(WHW_e, lin["cam_seg"]))
-        D = torch.where(free[:, None, None], D, eye6)
-        D_inv, inv_info = torch.linalg.inv_ex(D)
-        D_inv = torch.where((inv_info == 0)[:, None, None], D_inv, float("nan"))
-
-        def matvec(x):
-            xf = torch.where(free[:, None], x, 0.0)
-            t1 = _small_mv(lin["Hpp"], xf) + lam * xf
-            u_e = (lin["W_e"] * xf[cam][..., None]).sum(-2)  # (E_l, 3)
-            y_p = _small_mv(Hll_inv, segment_sum(u_e, lin["pt_seg"]))
-            t2 = psum(segment_sum(_small_mv(lin["W_e"], y_p[pt_local]), lin["cam_seg"]))
-            return torch.where(free[:, None], t1 - t2, 0.0) + torch.where(free[:, None], 0.0, x)
-
-        dxp, _ = cg_ba.pcg(matvec, lambda r: torch.where(free[:, None], _small_mv(D_inv, r), 0.0),
-                           b_red, max_cg_iters, cg_rtol)
-        return dxp, back_substitute(lin, Hll_inv, dxp, lambda a: a)
-
-    solve = schur_solve if solver == "dense" else schur_solve_cg
+    solve = (partial(ba_mod._schur_solve, reduce=psum) if solver == "dense"
+             else cg_ba.make_cg_solve_fn(max_cg_iters, cg_rtol, reduce=psum))
 
     lin0 = lin_graph(poses, points_l)
     hll_max = psum(torch.diagonal(lin0["Hll"], dim1=-2, dim2=-1).max().reshape(1), op="max")
@@ -174,7 +113,7 @@ def _sharded_lm(poses, points_l, k, cam_idx_l, pt_idx_l, uv_l, info_l, valid_l, 
     chi2_h = []
     for _ in range(n_iters):
         lin = lin_graph(poses_c, points_c)
-        dxp, dxl = solve(lin, st.lam)
+        dxp, dxl, _ = solve(local_prob, lin, st.lam)
         poses_n = se3.compose(se3.exp(dxp), poses_c)
         points_n = points_c + dxl
         chi2_n, dxl2, dxl_bl = psum(ba_mod._chi2_graph(local_prob, poses_n, points_n, delta),

@@ -9,19 +9,22 @@ of `monocular_slam_tpu/parallel/sharded_pose_graph.py`).
     over the group; the block-Jacobi preconditioner's (F, 7, 7) blocks, the
     gradient and chi2 are summed once per linearization. Communication is
     O(F), independent of the edge count.
+
+The solver is `pose_graph.optimize_cg` on the rank's edge slab, with
+`distributed.all_reduce` over the group as its `reduce`.
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from monocular_slam_tpu_torch.geometry import sim3
-from monocular_slam_tpu_torch.optim import cg_ba, lm
 from monocular_slam_tpu_torch.optim import pose_graph as pg
 from monocular_slam_tpu_torch.parallel.distributed import all_reduce
 from monocular_slam_tpu_torch.parallel.mesh import model_axis
-from monocular_slam_tpu_torch.utils.scatter import segment_sum
 
 
 def partition_edges(g: pg.PoseGraph, n_shards: int) -> pg.PoseGraph:
@@ -44,66 +47,6 @@ def partition_edges(g: pg.PoseGraph, n_shards: int) -> pg.PoseGraph:
                       robust=None if g.robust is None else pad(g.robust, False))
 
 
-def _sharded_pgo(verts, i_idx_l, j_idx_l, meas_l, weight_l, valid_l, fixed, *, group,
-                 n_iters: int, tau: float, max_cg_iters: int, rtol: float):
-    """One rank's LM program over its edge slab."""
-    dt, dev = verts.dtype, verts.device
-    free = ~fixed
-    eye7 = torch.eye(7, dtype=dt, device=dev)
-    g_l = pg.PoseGraph(verts, i_idx_l, j_idx_l, meas_l, weight_l, valid_l, fixed)
-    ii, jj = i_idx_l.long(), j_idx_l.long()
-
-    def lin_blocks(verts_c):
-        lin = pg._linearize_blocks(g_l, verts_c)
-        lin["chi2"], lin["b"], lin["D"] = all_reduce(group, lin["chi2"], lin["b"], lin["D"])
-        return lin
-
-    def matvec(lin, lam, x):
-        xf = torch.where(free[:, None], x, 0.0)
-        ge = lin["w"][:, None] * (torch.einsum("eai,ei->ea", lin["Ji"], xf[ii])
-                                  + torch.einsum("eai,ei->ea", lin["Jj"], xf[jj]))
-        y_l = segment_sum(torch.cat([torch.einsum("eai,ea->ei", lin["Ji"], ge),
-                                     torch.einsum("eai,ea->ei", lin["Jj"], ge)]), lin["seg"])
-        y = torch.where(free[:, None], all_reduce(group, y_l) + lam * xf, 0.0)
-        return y + torch.where(free[:, None], 0.0, x)
-
-    def solve(lin, lam):
-        D_inv, info = torch.linalg.inv_ex(torch.where(free[:, None, None], lin["D"] + lam * eye7,
-                                                      eye7))
-        D_inv = torch.where((info == 0)[:, None, None], D_inv, float("nan"))
-        b = torch.where(free[:, None], lin["b"], 0.0)
-        dx, _ = cg_ba.pcg(lambda x: matvec(lin, lam, x),
-                          lambda r: torch.where(free[:, None], (D_inv * r[:, None, :]).sum(-1), 0.0),
-                          b, max_cg_iters, rtol)
-        return dx, b
-
-    lin0 = lin_blocks(verts)
-    st = lm.LMState(lm.init_lambda(torch.diagonal(lin0["D"], dim1=-2, dim2=-1).reshape(-1), tau),
-                    torch.tensor(2.0, dtype=dt, device=dev), lin0["chi2"],
-                    torch.tensor(0, dtype=torch.int32, device=dev), torch.tensor(False, device=dev))
-    verts_c = verts
-    n_run = torch.tensor(0, dtype=torch.int32, device=dev)
-    chi2_h = []
-    for _ in range(n_iters):
-        n_run = n_run + (~st.done).to(torch.int32)
-        lin = lin_blocks(verts_c)
-        dx, b = solve(lin, st.lam)
-        verts_n = sim3.compose(sim3.exp(dx), verts_c)
-        chi2_n = all_reduce(group, pg._chi2(g_l, verts_n))
-        rho = lm.gain_ratio(lin["chi2"], chi2_n, dx.reshape(-1), b.reshape(-1), st.lam)
-        accept = (chi2_n < lin["chi2"]) & torch.isfinite(chi2_n)
-        lam_n, nu_n = lm.lm_step_accept(st.lam, st.nu, rho, accept)
-        stall = accept & (lin["chi2"] - chi2_n < 1e-9 * (lin["chi2"] + 1e-30))
-        # a frozen run computes the step, issues its collectives, keeps nothing
-        keep = accept & ~st.done
-        verts_c = torch.where(keep, verts_n, verts_c)
-        st = lm.LMState(torch.where(st.done, st.lam, lam_n), torch.where(st.done, st.nu, nu_n),
-                        torch.where(keep, chi2_n, torch.where(st.done, st.chi2, lin["chi2"])),
-                        st.it + 1, st.done | stall)
-        chi2_h.append(st.chi2)
-    return verts_c, lin0["chi2"], torch.stack(chi2_h), n_run
-
-
 def distributed_optimize(g: pg.PoseGraph, mesh: DeviceMesh, n_iters: int = 20, tau: float = 1e-5,
                          max_cg_iters: int = 100, rtol: float = 1e-8) -> pg.PoseGraphResult:
     """Pose-graph LM with edges sharded over the mesh's "model" axis (no
@@ -114,7 +57,7 @@ def distributed_optimize(g: pg.PoseGraph, mesh: DeviceMesh, n_iters: int = 20, t
     gp = partition_edges(g, n_shards)
     e_l = gp.i_idx.shape[0] // n_shards
     sl = slice(shard * e_l, (shard + 1) * e_l)
-    verts, chi2_0, chi2_h, n_run = _sharded_pgo(
-        gp.vertices, gp.i_idx[sl], gp.j_idx[sl], gp.meas[sl], gp.weight[sl], gp.valid[sl],
-        gp.fixed, group=group, n_iters=n_iters, tau=tau, max_cg_iters=max_cg_iters, rtol=rtol)
-    return pg.PoseGraphResult(verts, chi2_0, chi2_h, n_run)
+    g_l = pg.PoseGraph(gp.vertices, gp.i_idx[sl], gp.j_idx[sl], gp.meas[sl], gp.weight[sl],
+                       gp.valid[sl], gp.fixed)
+    return pg.optimize_cg(g_l, n_iters=n_iters, tau=tau, max_cg_iters=max_cg_iters, rtol=rtol,
+                          reduce=partial(all_reduce, group))

@@ -13,9 +13,9 @@ On the host, at keyframe rate: the consistency check over detections
 (`compute_sim3`), the near-identity gate, the pose-graph correction with
 every remembered loop edge (`correct`), the global BA, and the chi2
 quality guard. Those read a few scalars on the host, at closure rate.
-Keyframe graphs past 128 vertices take the matrix-free
-`pose_graph.optimize_cg`, and global BA past F*P = 4e6 takes
-`cg_ba.bundle_adjust_cg`, as in the reference; they run
+Keyframe graphs past `POSE_GRAPH_DENSE_MAX` vertices (512; the reference:
+128) take the matrix-free `pose_graph.optimize_cg`, and global BA past F*P =
+4e6 takes `cg_ba.bundle_adjust_cg`, as in the reference; they run
 `POSE_GRAPH_CG_ITERS` and `GLOBAL_BA_CG_ITERS` PCG steps per LM iteration
 (the reference 100 and 50).
 
@@ -56,9 +56,14 @@ from monocular_slam_tpu_torch.utils.scatter import mark, segment_min, set_last, 
 # BA within 0.6% of the dense Schur at F 1032, but the pose graph at K_pad
 # 256-512 needs more: 200 steps end 7-33% of the dense correction away, 400
 # up to 11%, 800 at most 0.5% (a chain's conditioning, not float32: float64
-# at 200 steps ends as far away), so the port runs 800.
+# at 200 steps ends as far away), so the CG pose graph runs 800. Those
+# graphs take the exact dense route, 1.3-1.9 s a correction at K_pad 512
+# against ~13 s for 800 PCG steps, so the dense route runs up to 512 (the
+# reference switches at 128); larger graphs, no better conditioned, keep
+# the CG route at 800 steps.
 GLOBAL_BA_CG_ITERS = 100
 POSE_GRAPH_CG_ITERS = 800
+POSE_GRAPH_DENSE_MAX = 512
 
 
 @dataclass
@@ -434,7 +439,7 @@ class LoopCloser:
                                     le_w.to(dt)]),
         )
         g = g._replace(fixed=g.fixed | ~vert_valid)  # padding vertices alias frame 0
-        if K_pad <= 128:
+        if K_pad <= POSE_GRAPH_DENSE_MAX:
             res = pose_graph.optimize(g, n_iters=20, huber_delta=self.lc.pg_huber_delta)
         else:
             # the dense (7K)^2 Cholesky per LM step gives way to matrix-free

@@ -424,10 +424,12 @@ def _count_calls(monkeypatch, module, name):
 
 def test_correct_cg_route(loop_run, monkeypatch):
     """`correct` with a 160-vertex keyframe bucket: both closers take the
-    matrix-free pose graph, and the corrected states agree."""
+    matrix-free pose graph (the port at the reference's dense/CG switch,
+    128), and the corrected states agree."""
     i, j, S = _closure_inputs(loop_run)
     lcfg = dict(loop_run["lcfg"], run_global_ba=False, kf_bucket=160)
     jl = jlc.LoopCloser(voc=loop_run["jv"], cfg=loop_run["jcfg"], lc=jlc.LoopClosureConfig(**lcfg))
+    monkeypatch.setattr(tlc, "POSE_GRAPH_DENSE_MAX", 128)
     tl = tlc.LoopCloser(loop_run["tv"], loop_run["tcfg"], tlc.LoopClosureConfig(**lcfg), device="cpu")
     j_calls = _count_calls(monkeypatch, jpg, "optimize_cg")
     t_calls = _count_calls(monkeypatch, tpg, "optimize_cg")
@@ -472,7 +474,8 @@ def test_session_loop_revisit_scale_routes(loop_run, monkeypatch):
     """The feature-path revisit with max_points 65536 and a 160-vertex
     keyframe bucket, through both sessions, with the near-identity gate off
     so that the closure is corrected (this course's drift is below it): the
-    correction takes both CG routes, the port closes the same loops as the
+    correction takes both CG routes (the port at the reference's dense/CG
+    switch of the pose graph, 128), the port closes the same loops as the
     reference, and its ATE stays within max(1.5 x reference,
     reference + 5 mm)."""
     seq = loop_run["seq"]
@@ -490,6 +493,7 @@ def test_session_loop_revisit_scale_routes(loop_run, monkeypatch):
     pg_calls = _count_calls(monkeypatch, tpg, "optimize_cg")
     ba_calls = _count_calls(monkeypatch, tcg, "bundle_adjust_cg")
     tcfg = SlamConfig(frontend=FrontendConfig(n_features=256), **kw)
+    monkeypatch.setattr(tlc, "POSE_GRAPH_DENSE_MAX", 128)
     tl = tlc.LoopCloser(loop_run["tv"], tcfg, tlc.LoopClosureConfig(**lcfg), device="cpu")
     sess = TSession(tcfg, seed=3, run_ba=True, loop_closer=tl, device="cpu")
     k = np.asarray(seq.k, np.float32)

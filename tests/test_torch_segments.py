@@ -3,8 +3,8 @@ on a sorted `Segments` plan) against the route they replace, float
 `index_add_` / `index_put_(accumulate=True)`, on the CPU. The CPU's
 `index_add_` adds in index order, one value after another, and so does the
 plan, so the two agree bit for bit; on the card only the plan repeats run to
-run (`tests/test_torch_cuda.py` checks that there). Also: the snapshot
-loaders' card default."""
+run (`tests/test_torch_cuda.py` checks that there). Also: the solvers'
+`reduce` hook, and the snapshot loaders' card default."""
 
 import numpy as np
 import pytest
@@ -12,6 +12,7 @@ import torch
 
 from monocular_slam_tpu_torch.optim import ba as tba
 from monocular_slam_tpu_torch.optim import cg_ba as tcg
+from monocular_slam_tpu_torch.optim import lm as tlm
 from monocular_slam_tpu_torch.optim import pose_graph as tpg
 from monocular_slam_tpu_torch.utils import scatter
 
@@ -188,25 +189,46 @@ def test_snapshot_loaders_default_to_the_card(tmp_path, loader):
             fn(path)
 
 
-def test_pcg_convergence_stop_same_bits():
-    """A PCG loop that ends once frozen (`check_every`) gives the bits of
-    the full fixed-trip loop, and stops early when it converges."""
-    g = _loop_graph()
-    full = tpg.optimize_cg(g, n_iters=4, max_cg_iters=300, rtol=1e-6)
-    stop = tpg.optimize_cg(g, n_iters=4, max_cg_iters=300, rtol=1e-6, check_every=10)
-    assert torch.equal(full.vertices, stop.vertices) and torch.equal(full.chi2_history,
-                                                                     stop.chi2_history)
-    free = ~g.fixed
-    lin = tpg._linearize_blocks(g, g.vertices)
-    lam = torch.tensor(1e-3, dtype=torch.float64)
-    b = torch.where(free[:, None], lin["b"], 0.0)
+def _counting_reduce(calls):
+    """An identity `reduce` that records the shapes of every call."""
+
+    def reduce(*tensors, op="sum"):
+        calls.append([tuple(t.shape) for t in tensors])
+        return tlm.no_reduce(*tensors, op=op)
+
+    return reduce
+
+
+@pytest.mark.parametrize("route", ["schur_dense", "schur_cg", "pose_graph_cg"])
+def test_solves_reduce_hook(route):
+    """The single-device solves with an identity `reduce` that records its
+    calls (the distributed solvers pass an all-reduce over their group
+    there): the same bits as without one, and the sums the sharded routes
+    exchange, one (F, 6) or (F, 7) vector per PCG step."""
     calls = []
-
-    def matvec(x):
-        calls.append(1)
-        return tpg._hessian_matvec(g, lin, lam, free, x)
-
-    x, stats = tcg.pcg(matvec, lambda r: r, b, 300, 1e-6, check_every=10)
-    assert int(stats.n_iters) < 300 and len(calls) == -(-int(stats.n_iters) // 10) * 10
-    assert torch.equal(x, tcg.pcg(lambda v: tpg._hessian_matvec(g, lin, lam, free, v),
-                                  lambda r: r, b, 300, 1e-6)[0])
+    red = _counting_reduce(calls)
+    if route == "pose_graph_cg":
+        g = _loop_graph()
+        F = g.vertices.shape[0]
+        a = tpg.optimize_cg(g, n_iters=3, max_cg_iters=20)
+        b = tpg.optimize_cg(g, n_iters=3, max_cg_iters=20, reduce=red)
+        assert torch.equal(a.vertices, b.vertices) and torch.equal(a.chi2_history, b.chi2_history)
+        # each linearization sums chi2, b and D in one call; each LM
+        # iteration adds 20 PCG steps and the candidate's chi2
+        assert calls[0] == [(), (F, 7), (F, 7, 7)]
+        assert len(calls) == 1 + 3 * (1 + 20 + 1)
+        assert calls.count([(F, 7)]) == 3 * 20 and calls.count([()]) == 3
+        return
+    prob = _ba_problem()
+    F = prob.poses.shape[0]
+    lin = tba._linearize_graph(prob, prob.poses, prob.points, tba.THRESH_HUBER_FULL_BA)
+    lam = torch.tensor(1e-3, dtype=torch.float64)
+    if route == "schur_dense":
+        a = tba._schur_solve(prob, lin, lam)
+        b = tba._schur_solve(prob, lin, lam, reduce=red)
+        assert calls == [[(F, 6)], [(6 * F, 6 * F)]]
+    else:
+        a = tcg.make_cg_solve_fn(30)(prob, lin, lam)
+        b = tcg.make_cg_solve_fn(30, reduce=red)(prob, lin, lam)
+        assert calls[:2] == [[(F, 6)], [(F, 6, 6)]] and calls[2:] == [[(F, 6)]] * 30
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
