@@ -7,6 +7,7 @@
     python3 chip_profile.py cgdense  # CG vs dense global BA on the loop state, by PCG steps
     python3 chip_profile.py cgdense long  # CG vs dense at every CG closure of the 1000-frame long run
     python3 chip_profile.py detsum [ROOT]  # the scale solvers and the session, package from ROOT
+    python3 chip_profile.py fps [ROOT]     # the session's and the loop course's fps, package from ROOT
     python3 chip_profile.py nccl     # host cost of one all-reduce at NCCL world size 1
     python3 chip_profile.py cgsteps  # chip_smoke.py's long phase at the reference's PCG steps and the port's
 
@@ -33,6 +34,12 @@ the dense route's 99th-percentile point move.
 best of 3 calls after a warm-up) and the 60-frame session's fps over frames
 10-59, with `monocular_slam_tpu_torch` imported from ROOT (default: this
 checkout). Run it on two checkouts in one call to compare them on one card.
+
+`fps [ROOT]`: the 60-frame session of `chip_smoke.py` twice (fps over
+frames 10-59 of the second run) and its loop course once (fps, closures,
+relocalization attempts), with `monocular_slam_tpu_torch` and
+`chip_smoke.py` imported from ROOT (default: this checkout). Run it on two
+checkouts in one call, in turns, to compare them on one card.
 
 `nccl`: a one-rank NCCL group in this process; 500 calls of
 `distributed.all_reduce` on a (1000, 6) float32 tensor, host seconds per
@@ -477,6 +484,32 @@ def det_sum(smi: str, root: str | None) -> int:
     return 0
 
 
+def fps_run(smi: str, root: str | None) -> int:
+    if root:
+        sys.path.insert(0, root)
+    import chip_smoke as cs
+    import monocular_slam_tpu_torch
+    from monocular_slam_tpu_torch.datasets import render
+    from monocular_slam_tpu_torch.ops import fast_score, hamming
+    from monocular_slam_tpu_torch.retrieval import vocabulary
+    from monocular_slam_tpu_torch.utils.device import apply_precision_policy
+
+    apply_precision_policy()
+    fast_score.load()
+    hamming.load()
+    imgs, poses_gt, k = render.render_sequence(seed=11, n_frames=cs.N_FRAMES, wh=cs.WH, device="cuda")
+    cs.run_session(imgs, poses_gt, k, count_syncs=False)
+    run = cs.run_session(imgs, poses_gt, k, count_syncs=False)
+    frames, real, loop_gt, loop_k = cs._loop_frames(torch.device("cuda"))
+    loop, _ = cs.run_loop(frames, real, loop_gt, loop_k, vocabulary.load_default(), "bundled")
+    print(json.dumps({"device": smi, "package": monocular_slam_tpu_torch.__file__,
+                      "session_fps_10_59": run["fps_10_59"], "session_tracked": run["tracked"],
+                      "session_ate_m": run["ate_m"], "loop_fps": loop["fps"],
+                      "loop_closures": loop["closures"], "loop_reloc_attempts": loop["reloc_attempts"],
+                      "loop_ate_m": loop["ate_m"]}), flush=True)
+    return 0
+
+
 def cg_steps(smi: str) -> int:
     import chip_smoke as cs
     from monocular_slam_tpu_torch.slam import loop_closer
@@ -564,9 +597,12 @@ def main() -> int:
     print(smi, flush=True)
     if sys.argv[1:2] == ["detsum"]:  # before any import of the package
         return det_sum(smi, sys.argv[2] if len(sys.argv) > 2 else None)
+    if sys.argv[1:2] == ["fps"]:
+        return fps_run(smi, sys.argv[2] if len(sys.argv) > 2 else None)
     import chip_smoke as cs
     from monocular_slam_tpu_torch.ops import fast_score, hamming
     from monocular_slam_tpu_torch.retrieval import vocabulary
+    from monocular_slam_tpu_torch.utils import prng
     from monocular_slam_tpu_torch.utils.device import apply_precision_policy
 
     apply_precision_policy()
@@ -613,7 +649,7 @@ def main() -> int:
             _sync()
             t0 = time.perf_counter()
             with torch.inference_mode():
-                lc.compute_sim3(sess.state, i, j, sess.gen)
+                lc.compute_sim3(sess.state, i, j, prng.PRNGKey(0))
             _sync()
             sim3_ms.append((time.perf_counter() - t0) * 1e3)
     print(json.dumps({"device": smi, "frames": n, "wrapped_wall_ms": wall_ms,

@@ -9,15 +9,28 @@ benchmark's full width and checks them:
   2. build    — compiles K1 (`csrc/fast_score.cu`) and K2
                 (`csrc/hamming_top2.cu`) from the checkout, one nvcc each,
                 both started together;
-  3. K1       — the one-launch kernel vs its plain PyTorch version on the 8
+  3. draws    — the session's keyed RANSAC draws (`prng.uniform_on`, torch
+                int64 ops on the card) bit for bit against the numpy
+                `prng.uniform` / `random_bits` at the session's three shapes
+                (PnP 512 x 1000, bootstrap 2000 x 1000, Sim3 256 x 1000) and
+                two odd ones, under three seeds; event-timed ms per draw and
+                per `_sample_indices` call; then the port's session on the
+                card over the reference's key-3 course (12 frames, 320x240,
+                seed 0, frames from the committed fixture
+                tests/fixtures/reference_session_key3.npz, which the JAX
+                session wrote on the CPU): tracked flags, keyframes and the
+                final session key must equal the fixture's, rotations within
+                REF_ROT_TOL and translations within REF_TRANS_TOL of their
+                length (the CPU test's tolerance); K1 and K2 must launch;
+  4. K1       — the one-launch kernel vs its plain PyTorch version on the 8
                 pyramid levels of a rendered 640x480 frame, and the
                 one-level call on 101x173: nms map within 1e-5 everywhere,
                 raw map within 1e-5 on the interior (>= 3 px from the
                 edge); per frame the median CUDA-event-timed call over 50,
                 the kernel's device time from `torch.profiler`, the bound;
-  4. extract  — ORB extraction with K1 and with the plain maps: identical
+  5. extract  — ORB extraction with K1 and with the plain maps: identical
                 keypoint sets and descriptors, both steer modes;
-  5. session  — the 60-frame 640x480 course rendered on the card through
+  6. session  — the 60-frame 640x480 course rendered on the card through
                 `SlamSession.add_frame` with the benchmark's configuration
                 (max_frames 64, max_points 20000, 1000 features, 8 levels,
                 steer_mode "auto", seed 1, BA on): one warm-up run with the
@@ -27,7 +40,7 @@ benchmark's full width and checks them:
                 the two trajectories differ by more than 1e-6 m, below one
                 K1 launch per frame, or below 2 K2 launches in any tracked
                 frame;
-  6. k2       — K2 vs its plain version, equal exactly in d1, d2 and idx, on
+  7. k2       — K2 vs its plain version, equal exactly in d1, d2 and idx, on
                 1000x1000 real descriptors (frames 0 and 5 of the course),
                 2000x20000 and 2000x65536 random +-1, 97x123, an all-invalid
                 32x64, a case with duplicate minima, the tracker's window
@@ -38,17 +51,17 @@ benchmark's full width and checks them:
                 shape the median event-timed call over 50, the profiler's
                 device time, the bound, and `torch._int_mm` of the same int8
                 product alone as a yardstick (the port never calls it);
-  7. lc60     — the 60-frame course again with the bench's loop closer
+  8. lc60     — the 60-frame course again with the bench's loop closer
                 attached (bundled vocabulary): fps over frames 10-59 and
                 ATE; with no closure and no relocalization the ATE must
                 equal the session phase's to 1e-4 m;
-  8. loop     — a 112-frame course that revisits its start (max_frames 128),
+  9. loop     — a 112-frame course that revisits its start (max_frames 128),
                 with 8 frames of uniform noise after frame 40: at least one
                 closure with i - j >= 40, at least one relocalization attempt
                 that launched K2, tracked >= real frames - 6, ATE <= 10 cm on
                 the real frames, then a direct `tracker.relocalize` of the
                 last frame against its predecessor;
-  9. scale    — the matrix-free solvers at benchmarks/kitti_scale.py's shapes
+ 10. scale    — the matrix-free solvers at benchmarks/kitti_scale.py's shapes
                 (numpy draws): a 10,000-keyframe drifted Sim3 graph with 100
                 loop edges through `pose_graph.optimize_cg` and the 1000-
                 camera, 100,000-point, 1.5M-edge problem through
@@ -59,7 +72,7 @@ benchmark's full width and checks them:
                 BA and of `correct` on the loop phase's final state: the
                 CG route's poses (99% of its points) must agree with the
                 dense route's to within 10% (25%) of the dense correction;
- 10. dist     — the distributed solvers (`parallel/*`). NCCL at world size 1
+ 11. dist     — the distributed solvers (`parallel/*`). NCCL at world size 1
                 in this process: `distributed_bundle_adjust(solver="cg")` on
                 the scale phase's 1.5M-edge problem against
                 `cg_ba.bundle_adjust_cg` (50 PCG steps), `distributed_optimize`
@@ -80,7 +93,7 @@ benchmark's full width and checks them:
                 Repeat check: the CG BA (single-device and sharded), the CG
                 pose graph and the 60-frame session each run twice, bit for
                 bit the same;
- 11. long     — benchmarks/long_run.py's configuration (`run_long`) cut to
+ 12. long     — benchmarks/long_run.py's configuration (`run_long`) cut to
                 LONG_FRAMES frames, with the pose graph's dense/CG switch
                 at the reference's 128 keyframes (the port's default, 512,
                 is past this run): fails on a non-finite pose, below 95%
@@ -89,7 +102,7 @@ benchmark's full width and checks them:
                 evicted, unless K1 launched once per frame and K2 at least
                 twice in every track call; reports ATE, fps, prewarm
                 seconds, each Sim3's seconds and the closure stages;
- 12. cli      — the port's CLI as a user runs it: the long run's course
+ 13. cli      — the port's CLI as a user runs it: the long run's course
                 (seed 19, 0.05 rad/frame) rendered on the card for
                 CLI_FRAMES frames, written as a TUM directory by
                 `render.write_tum` (8-bit PNGs, groundtruth, calib) and
@@ -98,7 +111,7 @@ benchmark's full width and checks them:
                 monocular_slam_tpu_torch.run --dataset <dir> --loop-closure
                 --vocab default --verbose` as a subprocess at the CLI's
                 default width (1000 features, max_frames 256, max_points
-                30000): exit code 0, tracked >= 95%, ATE <= 5 cm, a
+                30000): exit code 0, tracked >= 95%, ATE <= CLI_MAX_ATE_M, a
                 closure with i - j >= 40, the summary's ATE equal to
                 `eval.compare` of trajectory.txt
                 against groundtruth.txt to 1e-5 m, map.ply readable, K1 one
@@ -107,7 +120,7 @@ benchmark's full width and checks them:
                 in KITTI layout through `run.main` in-process (tracked >=
                 KITTI_MIN_TRACKED) and the synthetic feature route at the
                 CLI's defaults (finite ATE).
- 13. mesh     — `viz.mesh.estimate_normals` + `poisson_mesh` on the card:
+ 14. mesh     — `viz.mesh.estimate_normals` + `poisson_mesh` on the card:
                 the cli phase's map.ply points (finite, triangles) and the
                 4000-point unit sphere at depth 5 (watertight: no boundary
                 edge; mean radius within 5% of 1); seconds of each.
@@ -177,11 +190,21 @@ LONG_FRAMES = 400
 # the CLI phase: the long run's orbit through files, the decoder and the CLI
 CLI_FRAMES = 200
 CLI_MIN_TRACKED = 190
-CLI_MAX_ATE_M = 0.05
+# 1.5 x the reference's own ATE on this course from the same seed (4.963 cm,
+# `python tests/reference_cli_course.py`), the outcome tolerance of
+# tests/test_torch_slice.py; its seeds 1 and 2 reach 4.85 and 2.75 cm
+CLI_MAX_ATE_M = 0.0744
 CLI_TIMEOUT_S = 480
 KITTI_FRAMES = 40
 KITTI_MIN_TRACKED = 38
 ROOT = Path(__file__).resolve().parent
+DRAW_SHAPES = {"pnp": (512, 1000), "bootstrap": (2000, 1000), "sim3": (256, 1000),
+               "odd 7x13": (7, 13), "odd 333x777": (333, 777)}
+DRAW_SAMPLE = {"pnp": 6, "bootstrap": 8, "sim3": 3}  # sample sizes of the session's RANSACs
+DRAW_SEEDS = (0, 3, 12345)
+REF_FIXTURE = ROOT / "tests" / "fixtures" / "reference_session_key3.npz"
+REF_ROT_TOL = 5e-3  # tests/test_torch_slice.py::_assert_poses_close
+REF_TRANS_TOL = (1e-2, 1e-3)  # |dt| <= 1e-2 |t_ref| + 1e-3
 
 
 def log(msg: str) -> None:
@@ -267,6 +290,80 @@ def phase_build():
             f"(nvcc {mod.BUILD_INFO.get('seconds', 0.0):.2f} s)")
         for line in mod.BUILD_INFO.get("log", "").splitlines():
             log(f"[build]   {line}")
+
+
+def phase_draws() -> dict:
+    from monocular_slam_tpu_torch.geometry import epipolar
+    from monocular_slam_tpu_torch.ops import fast_score, hamming
+    from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
+    from monocular_slam_tpu_torch.slam.session import SlamSession
+    from monocular_slam_tpu_torch.utils import prng
+
+    dev = "cuda"
+    for seed in DRAW_SEEDS:
+        key = prng.PRNGKey(seed)
+        for name, shape in DRAW_SHAPES.items():
+            got = prng.uniform_on(key, shape, dev, minval=1e-6, maxval=1.0).cpu().numpy()
+            ref = prng.uniform(key, shape, np.float32, 1e-6, 1.0)
+            bits = prng.bits_on(key, shape, dev).cpu().numpy()
+            n_bad = int((got != ref).sum() + (bits != prng.random_bits(key, 32, shape)).sum())
+            if n_bad:
+                raise AssertionError(f"draws: {n_bad} values of seed {seed} at {name} {shape} "
+                                     "differ from the numpy generator")
+    log(f"[draws] uniform_on and bits_on equal the numpy generator bit for bit at "
+        f"{list(DRAW_SHAPES.values())} under seeds {list(DRAW_SEEDS)}")
+    key = prng.PRNGKey(5)
+    cost = {}
+    for name, size in DRAW_SAMPLE.items():
+        shape = DRAW_SHAPES[name]
+        mask = torch.rand(shape[1], device=dev) > 0.3
+        cost[name] = {
+            "uniform_ms": time_ms(lambda: prng.uniform_on(key, shape, dev, minval=1e-6)),
+            "sample_indices_ms": time_ms(lambda: epipolar._sample_indices(key, shape[0], size,
+                                                                          mask)),
+        }
+    log("[draws] event-timed ms per call: " + json.dumps(cost))
+
+    with np.load(REF_FIXTURE) as f:
+        fx = {n: f[n] for n in f.files}
+    W, H = (int(v) for v in fx["image_wh"])
+    cfg = SlamConfig(max_frames=int(fx["max_frames"]), max_points=int(fx["max_points"]),
+                     image_wh=(W, H), frontend=FrontendConfig(n_features=int(fx["n_features"])))
+    frames = torch.as_tensor(fx["frames"], device=dev).to(torch.float32)
+    sess = SlamSession(cfg, seed=int(fx["seed"]), run_ba=True, device=dev)
+    fast_score.LAUNCHES = hamming.LAUNCHES = 0
+    for i in range(frames.shape[0]):
+        sess.add_frame(frames[i], fx["k"], i / 30.0)
+    poses, valid, _ = sess.trajectory()
+    k1, k2 = fast_score.LAUNCHES, hamming.LAUNCHES
+    ref = fx["poses"]
+    tracked = np.array([s.tracked for s in sess.stats])
+    n_inl = np.array([s.n_inliers for s in sess.stats])
+    rot = float(np.abs(poses[:, :, :3] - ref[:, :, :3]).max())
+    dt = np.linalg.norm(poses[:, :, 3] - ref[:, :, 3], axis=-1)
+    t_len = np.linalg.norm(ref[:, :, 3], axis=-1)
+    out = {
+        "tracked": int(tracked.sum()), "frames": int(len(tracked)),
+        "tracked_equal": bool(np.array_equal(tracked, fx["tracked"])),
+        "keyframes": sess.keyframes, "keyframes_equal": sess.keyframes == fx["keyframes"].tolist(),
+        "key_equal": bool(np.array_equal(sess.key, fx["key"])),
+        "n_inliers_max_diff": int(np.abs(n_inl - fx["n_inliers"]).max()),
+        "rot_max_diff": rot, "trans_max_diff": float(dt.max()),
+        "trans_max_rel_diff": float((dt / np.maximum(t_len, 1e-9)).max()),
+        "k1_launches": k1, "k2_launches": k2, "draw_ms": cost,
+    }
+    log("[draws] reference course on the card: " + json.dumps(out))
+    if not (out["tracked_equal"] and out["keyframes_equal"] and out["key_equal"]):
+        raise AssertionError("draws: the card's session left the reference's run (tracked flags, "
+                             "keyframes or session key differ)")
+    if not rot <= REF_ROT_TOL:
+        raise AssertionError(f"draws: rotations {rot} apart > {REF_ROT_TOL}")
+    if not (dt <= REF_TRANS_TOL[0] * t_len + REF_TRANS_TOL[1]).all():
+        raise AssertionError(f"draws: translations {dt.tolist()} apart, beyond "
+                             f"{REF_TRANS_TOL[0]} x {t_len.tolist()} + {REF_TRANS_TOL[1]}")
+    if k1 < frames.shape[0] or k2 < 2:
+        raise AssertionError(f"draws: K1 launched {k1} times, K2 {k2}")
+    return out
 
 
 def _k1_check(name, img, nms_k, raw_k, nms_p, raw_p) -> float:
@@ -667,6 +764,7 @@ def phase_loop(dev="cuda") -> dict:
     from monocular_slam_tpu_torch.ops import features
     from monocular_slam_tpu_torch.retrieval import vocabulary
     from monocular_slam_tpu_torch.slam import tracker
+    from monocular_slam_tpu_torch.utils import prng
 
     t0 = time.perf_counter()
     frames, real, poses_gt, k = _loop_frames(torch.device(dev))
@@ -695,7 +793,7 @@ def phase_loop(dev="cuda") -> dict:
         raise AssertionError(f"loop: K1 launched {out['k1_launches']} times, < 1 per frame")
     last = frames.shape[0] - 1
     with torch.inference_mode():
-        res = tracker.relocalize(sess.state, last, last - 1, sess.gen, sess.cfg)
+        res = tracker.relocalize(sess.state, last, last - 1, prng.PRNGKey(11), sess.cfg)
     ok, n = bool(res.ok), int(res.n_inliers)
     log(f"[loop] closures {out['closures']}, corrected {out['corrected']}, skipped-identity "
         f"{out['skipped_identity']}, culled keyframes {len(out['culled_keyframes'])}, "
@@ -1608,6 +1706,7 @@ def main() -> int:
 
     phase_device()
     timed("build", phase_build)
+    timed("draws", phase_draws)
     res = timed("session", phase_session)
     k2 = timed("k2", phase_k2, res["imgs"])
     timed("lc60", phase_lc60, res)

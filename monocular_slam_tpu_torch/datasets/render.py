@@ -46,6 +46,9 @@ class Planes(NamedTuple):
     tex_id: torch.Tensor  # (P,) int64
 
 
+Plane = Planes  # the reference's name for the stacked planes
+
+
 def texture(key: np.ndarray, size: int = 2048, device=None) -> torch.Tensor:
     """(size, size) high-contrast multi-scale noise texture in [0, 255] from
     a threefry key, the reference's `_texture(key, size)`."""
@@ -129,17 +132,21 @@ def render_frame(pose: torch.Tensor, k: torch.Tensor, wh, planes: Planes,
 
 
 def render_sequence(seed: int = 11, n_frames: int = 60, wh=(640, 480), radius: float = 1.8,
-                    ang_step: float = 0.06, tex_size: int = 2048, device=None):
+                    ang_step: float = 0.06, tex_size: int = 2048, device=None, key=None, k=None):
     """The rendered orbit inside the box room, textured from
-    `PRNGKey(seed)`. Returns (images (F, H, W) float32 tensor on `device`
-    (default: the card), quantized to integers in [0, 255] as the
-    reference's PNG export stores them; poses_gt (F, 3, 4) numpy
-    world->camera; k (4,) numpy)."""
+    `PRNGKey(seed)` (or from `key`, a (2,) uint32 key, when given), seen
+    through `k` (default: `SYNTH_K` scaled to `wh`). Returns (images
+    (F, H, W) float32 tensor on `device` (default: the card), quantized to
+    integers in [0, 255] as the reference's PNG export stores them;
+    poses_gt (F, 3, 4) numpy world->camera; k (4,) numpy)."""
     device = resolve_device(device)
     W, H = wh
-    k = SYNTH_K * np.array([W / 640.0, H / 480.0, W / 640.0, H / 480.0])
+    if k is None:
+        k = SYNTH_K * np.array([W / 640.0, H / 480.0, W / 640.0, H / 480.0])
+    k = np.asarray(k)
     planes = box_room(device=device)
-    keys = prng.split(prng.PRNGKey(seed), planes.origin.shape[0])
+    key = prng.PRNGKey(seed) if key is None else np.asarray(key, np.uint32)
+    keys = prng.split(key, planes.origin.shape[0])
     textures = torch.stack([texture(kk, tex_size, device) for kk in keys])
     poses = arc_trajectory(n_frames, radius=radius, ang_step=ang_step)
     kt = torch.as_tensor(k, dtype=torch.float32, device=device)
@@ -187,11 +194,12 @@ def write_tum(root: str, imgs, poses: np.ndarray, k: np.ndarray, fps: float = 30
 
 
 def export_tum(root: str, seed: int = 0, n_frames: int = 60, wh=(640, 480), fps: float = 30.0,
-               device=None, **render_kwargs) -> str:
+               device=None, key=None, **render_kwargs) -> str:
     """Render a course (`render_sequence(seed, ...)` on `device`, default
-    the card) and write it as a TUM RGB-D directory (rgb/*.png, rgb.txt,
-    groundtruth.txt, calib.txt, VERSION), as the reference's `export_tum`
-    does with `PRNGKey(seed)`. Returns `root`."""
+    the card; `key` in place of `PRNGKey(seed)`) and write it as a TUM
+    RGB-D directory (rgb/*.png, rgb.txt, groundtruth.txt, calib.txt,
+    VERSION), as the reference's `export_tum` does with `PRNGKey(seed)`.
+    Returns `root`."""
     imgs, poses, k = render_sequence(seed=seed, n_frames=n_frames, wh=wh, device=device,
-                                     **render_kwargs)
+                                     key=key, **render_kwargs)
     return write_tum(root, imgs, poses, k, fps)

@@ -55,15 +55,27 @@ def _cross(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.stack(comp, axis=-1)
 
 
-def arc_trajectory(n_frames: int, radius: float = 4.0, ang_step: float = 0.04) -> np.ndarray:
-    """(n_frames, 3, 4) float32 world->camera poses orbiting the origin and
-    looking at it; a full revisit happens at ang_step * i = 2 pi. float32
+def arc_trajectory(n_frames: int, radius: float = 4.0, dtype=np.float32,
+                   ang_step: float = 0.04) -> np.ndarray:
+    """(n_frames, 3, 4) world->camera poses orbiting the origin and looking
+    at it; a full revisit happens at ang_step * i = 2 pi. float32: float32
     arithmetic with the reference's fused multiply-adds, so the poses equal
-    the reference's bit for bit."""
+    the reference's bit for bit; float64: plain float64 arithmetic (the
+    reference's float64 multiply-adds round once, these twice)."""
     i = np.arange(n_frames)
     ang = ang_step * i
-    c = np.stack([radius * np.sin(ang), 0.15 * np.sin(0.3 * i), -radius * np.cos(ang)],
-                 axis=-1).astype(np.float32)
+    c = np.stack([radius * np.sin(ang), 0.15 * np.sin(0.3 * i), -radius * np.cos(ang)], axis=-1)
+    if np.dtype(dtype) == np.float64:
+        z = -c / np.linalg.norm(c, axis=-1, keepdims=True)
+        x = np.cross(np.array([0.0, 1.0, 0.0]), z)
+        x = x / np.linalg.norm(x, axis=-1, keepdims=True)
+        R_wc = np.stack([x, np.cross(z, x)], axis=1)
+        R_wc = np.concatenate([R_wc, z[:, None]], axis=1)
+        t = -(R_wc @ c[..., None])[..., 0]
+        return np.concatenate([R_wc, t[..., None]], axis=-1)
+    if np.dtype(dtype) != np.float32:
+        raise ValueError(f"arc_trajectory: dtype must be float32 or float64, got {dtype}")
+    c = c.astype(np.float32)
     z = -c / _norm(c)[:, None]
     x = _cross(np.broadcast_to(np.array([0.0, 1.0, 0.0], np.float32), z.shape), z)
     x = x / _norm(x)[:, None]

@@ -2,8 +2,8 @@
 loop closure (counterpart of `monocular_slam_tpu/geometry/alignment.py`).
 
 RANSAC hypotheses are one batch (3-point Horn fits), as in the reference.
-The draws come from a `torch.Generator`; tests feed the reference's
-uniforms through `u`. The Gauss-Newton polish differentiates the dual
+The draws are the reference's, made from a host key (`epipolar._sample_indices`);
+`u` takes the uniforms themselves. The Gauss-Newton polish differentiates the dual
 reprojection residual with `torch.func.jacfwd`, as the reference does with
 `jax.jacfwd`.
 """
@@ -69,15 +69,16 @@ def _dual_reproj_err(S, X, Y, uv_x, uv_y, k_x, k_y, T_x, T_y):
     return err_x, err_y, pos
 
 
-def ransac_sim3_reproj(gen, X, Y, mask, uv_x, uv_y, k_x, k_y, T_x, T_y,
+def ransac_sim3_reproj(key, X, Y, mask, uv_x, uv_y, k_x, k_y, T_x, T_y,
                        n_iters: int = 256, px_thresh: float = 10.0, min_inliers: int = 12,
                        polish_iters: int = 4, u=None) -> Sim3RansacResult:
     """RANSAC Sim3 from matched 3D-3D pairs, inliers gated by reprojection
     error in pixels in both frames; then a Horn refit on the winner's
     inliers, and an annealed Gauss-Newton polish (gate, half, quarter) on
-    the 7-dof tangent. `u`: optional (n_iters, N) RANSAC uniforms."""
+    the 7-dof tangent. `u`: the (n_iters, N) RANSAC uniforms in place of
+    `key`."""
     dt = X.dtype
-    idx = _sample_indices(gen, n_iters, 3, mask, u)
+    idx = _sample_indices(key, n_iters, 3, mask, u)
     S_h = horn_sim3(X[idx], Y[idx])
     err_x, err_y, pos = _dual_reproj_err(S_h[:, None], X[None], Y[None], uv_x[None],
                                          uv_y[None], k_x, k_y, T_x, T_y)
@@ -137,11 +138,12 @@ def ransac_sim3_reproj(gen, X, Y, mask, uv_x, uv_y, k_x, k_y, T_x, T_y,
     return Sim3RansacResult(S_best, inliers, n, n >= min_inliers)
 
 
-def ransac_sim3(gen, X, Y, mask, n_iters: int = 256, thresh: float = 0.1,
+def ransac_sim3(key, X, Y, mask, n_iters: int = 256, thresh: float = 0.1,
                 min_inliers: int = 12, u=None) -> Sim3RansacResult:
     """RANSAC Sim3 from 3D-3D pairs with a Euclidean inlier gate (scene
-    units) and a weighted refit."""
-    idx = _sample_indices(gen, n_iters, 3, mask, u)
+    units) and a weighted refit. `u`: the RANSAC uniforms in place of
+    `key`."""
+    idx = _sample_indices(key, n_iters, 3, mask, u)
     S_h = horn_sim3(X[idx], Y[idx])
     resid = torch.linalg.norm(sim3_mod.apply(S_h[:, None], X[None]) - Y[None], dim=-1)
     inl = (resid < thresh) & mask[None]

@@ -23,6 +23,10 @@ def intrinsics_to_matrix(k: torch.Tensor) -> torch.Tensor:
     )
 
 
+def matrix_to_intrinsics(K: torch.Tensor) -> torch.Tensor:
+    return torch.stack([K[..., 0, 0], K[..., 1, 1], K[..., 0, 2], K[..., 1, 2]], dim=-1)
+
+
 def _safe_z(z: torch.Tensor) -> torch.Tensor:
     return torch.where(
         z.abs() < _EPS, torch.where(z < 0, -_EPS, _EPS).to(z.dtype), z
@@ -48,6 +52,18 @@ def normalize_points(k: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     x = (uv[..., 0] - k[..., 2]) / k[..., 0]
     y = (uv[..., 1] - k[..., 3]) / k[..., 1]
     return torch.stack([x, y], dim=-1)
+
+
+def distort_radtan(dist: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Radial-tangential distortion (k1, k2, p1, p2, k3; OpenCV's order) of
+    normalized coordinates."""
+    k1, k2, p1, p2, k3 = (dist[..., i] for i in range(5))
+    x, y = xy[..., 0], xy[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+    yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+    return torch.stack([xd, yd], dim=-1)
 
 
 def undistort_radtan(dist: torch.Tensor, xy_d: torch.Tensor, iters: int = 10) -> torch.Tensor:

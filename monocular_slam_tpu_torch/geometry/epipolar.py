@@ -2,9 +2,11 @@
 cheirality (counterpart of `monocular_slam_tpu/geometry/epipolar.py`).
 
 RANSAC hypotheses are one batch: one constraint build, one batched
-nullspace solve, one Sampson evaluation, one argmax. The draws differ from
-the reference's (threefry), so `_sample_indices` takes optional uniforms
-`u` for tests that feed both packages the same numbers.
+nullspace solve, one Sampson evaluation, one argmax. The draws are the
+reference's: `_sample_indices` makes `jax.random.uniform(key, ...)`'s
+uniforms on the mask's device (`prng.uniform_on`) from a host key. Every
+RANSAC entry also takes the uniforms themselves as `u` (then `key` may be
+None).
 """
 
 from __future__ import annotations
@@ -15,8 +17,9 @@ import torch
 
 from monocular_slam_tpu_torch.geometry import camera as cam
 from monocular_slam_tpu_torch.geometry import se3, triangulate
+from monocular_slam_tpu_torch.utils import prng
 from monocular_slam_tpu_torch.utils.linalg import gram, nullspace_vector
-from monocular_slam_tpu_torch.utils.scatter import take
+from monocular_slam_tpu_torch.utils.scatter import take, topk_stable
 
 _EPS = 1e-12
 
@@ -83,6 +86,13 @@ def sampson_distance(F, uv1, uv2) -> torch.Tensor:
     return num / torch.clamp(den, min=_EPS)
 
 
+def epipolar_line(F: torch.Tensor, uv1: torch.Tensor) -> torch.Tensor:
+    """Lines l2 = F x1 in image 2 as (a, b, c) with ax + by + c = 0."""
+    ones = torch.ones(uv1.shape[:-1] + (1,), dtype=uv1.dtype, device=uv1.device)
+    x1 = torch.cat([uv1, ones], dim=-1)
+    return (F[..., None, :, :] * x1[..., None, :]).sum(-1)
+
+
 class RansacResult(NamedTuple):
     F: torch.Tensor
     inliers: torch.Tensor
@@ -90,24 +100,25 @@ class RansacResult(NamedTuple):
     best_score: torch.Tensor
 
 
-def _sample_indices(gen, n_hyp: int, sample_size: int, mask: torch.Tensor,
+def _sample_indices(key, n_hyp: int, sample_size: int, mask: torch.Tensor,
                     u: torch.Tensor | None = None) -> torch.Tensor:
     """`n_hyp` draws of `sample_size` distinct indices restricted to `mask`
-    (Gumbel-top-k). `u`: optional (n_hyp, n) uniforms in [1e-6, 1); drawn
-    from `gen` when absent. Ties only occur among masked-out entries."""
+    (Gumbel-top-k), as the reference draws them from `key` (a host (2,)
+    uint32 key): `uniform(key, (n_hyp, n), minval=1e-6)` in float32, made on
+    the mask's device. `u`: the (n_hyp, n) uniforms themselves, in place of
+    `key`. Equal logits (masked-out entries) go in index order, as
+    `lax.top_k` orders them."""
     n = mask.shape[-1]
     if u is None:
-        u = torch.rand((n_hyp, n), generator=gen, device=mask.device,
-                       dtype=torch.float32) * (1.0 - 1e-6) + 1e-6
+        u = prng.uniform_on(key, (n_hyp, n), mask.device, minval=1e-6, maxval=1.0)
     logits = torch.log(u) + torch.where(mask[None, :], 0.0, -1e30)
-    _, idx = torch.topk(logits, sample_size, dim=-1)
-    return idx
+    return topk_stable(logits, sample_size)[1]
 
 
-def ransac_fundamental(gen, uv1, uv2, mask, n_iters: int = 2000,
+def ransac_fundamental(key, uv1, uv2, mask, n_iters: int = 2000,
                        thresh: float = 1.5, u=None) -> RansacResult:
     """Batched RANSAC for F; `thresh` in pixels of Sampson error."""
-    idx = _sample_indices(gen, n_iters, 8, mask, u)
+    idx = _sample_indices(key, n_iters, 8, mask, u)
     F_h = eight_point(uv1[idx], uv2[idx], solver="inv_iter")
     d2 = sampson_distance(F_h, uv1[None], uv2[None])
     inl = (d2 < thresh * thresh) & mask[None]

@@ -16,7 +16,6 @@ from monocular_slam_tpu_torch.utils.scatter import take
 
 _EPS = 1e-12
 MIN_SAMPLE = 6
-LO_ROUNDS = 2  # exact weighted-DLT refits of the best hypothesis
 
 
 def pnp_dlt(X, xy, w=None, solver: str = "eigh") -> torch.Tensor:
@@ -63,7 +62,7 @@ def _score_pose(T, X, uv, k, mask, px_thresh):
 
 
 def solve_pnp_ransac(
-    gen,
+    key,
     X: torch.Tensor,
     uv: torch.Tensor,
     k: torch.Tensor,
@@ -71,13 +70,18 @@ def solve_pnp_ransac(
     n_iters: int = 512,
     px_thresh: float = 3.0,
     min_inliers: int = 10,
+    refine: bool = True,
     T_init: torch.Tensor | None = None,
+    lo_rounds: int = 2,
     u: torch.Tensor | None = None,
 ) -> PnPResult:
     """LO-RANSAC PnP. X (N, 3), uv (N, 2), k (4,), mask (N,). `T_init` joins
-    the hypothesis pool; `u` are optional (n_iters, N) sampling uniforms."""
+    the hypothesis pool; `lo_rounds` exact weighted-DLT refits of the best
+    hypothesis follow; with `refine`, a GN polish that is kept only if it
+    keeps as many inliers. `u`: the (n_iters, N) sampling uniforms in place
+    of `key`."""
     xy = cam.normalize_points(k, uv)
-    idx = _sample_indices(gen, n_iters, MIN_SAMPLE, mask, u)
+    idx = _sample_indices(key, n_iters, MIN_SAMPLE, mask, u)
     T_h = pnp_dlt(X[idx], xy[idx], solver="inv_iter")
     if T_init is not None:
         T_h = torch.cat([T_h, T_init[None]], dim=0)
@@ -87,7 +91,7 @@ def solve_pnp_ransac(
     inl_best = take(inl, best)
     n_best = take(scores, best)
 
-    for _ in range(LO_ROUNDS):
+    for _ in range(lo_rounds):
         wlo = (inl_best & mask).to(X.dtype)
         T_lo = pnp_dlt(X, xy, w=wlo, solver="eigh")
         inl_lo, n_lo = _score_pose(T_lo, X, uv, k, mask, px_thresh)
@@ -96,11 +100,14 @@ def solve_pnp_ransac(
         inl_best = torch.where(use, inl_lo, inl_best)
         n_best = torch.where(use, n_lo, n_best)
 
-    res = pose_ba.refine_pose(T_best, X, uv, k, inl_best.to(X.dtype), n_rounds=2,
-                              solver="gn")
-    # accept the refinement only if it keeps at least as many inliers
-    use = res.n_inliers >= inl_best.sum()
-    T_fin = torch.where(use, res.T, T_best)
-    inl_fin = torch.where(use, res.inliers, inl_best)
+    if refine:
+        res = pose_ba.refine_pose(T_best, X, uv, k, inl_best.to(X.dtype), n_rounds=2,
+                                  solver="gn")
+        # accept the refinement only if it keeps at least as many inliers
+        use = res.n_inliers >= inl_best.sum()
+        T_fin = torch.where(use, res.T, T_best)
+        inl_fin = torch.where(use, res.inliers, inl_best)
+    else:
+        T_fin, inl_fin = T_best, inl_best
     n_inl = inl_fin.sum()
     return PnPResult(T_fin, inl_fin, n_inl, n_inl >= min_inliers)

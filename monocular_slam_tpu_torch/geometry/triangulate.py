@@ -46,6 +46,14 @@ def depths(T: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     return (R[..., None, 2, :] * X).sum(-1) + t[..., 2:3]
 
 
+def reprojection_error(k: torch.Tensor, T: torch.Tensor, X: torch.Tensor,
+                       uv: torch.Tensor) -> torch.Tensor:
+    """Per-point pixel reprojection error norm of world points X under the
+    pose T (a batch of poses broadcasts over a point axis)."""
+    proj = cam.project(k, se3.apply(T[..., None, :, :] if T.dim() == X.dim() else T, X))
+    return torch.linalg.norm(proj - uv, dim=-1)
+
+
 def parallax_cosine(T1, T2, X) -> torch.Tensor:
     c1 = se3.camera_center(T1)[..., None, :]
     c2 = se3.camera_center(T2)[..., None, :]

@@ -47,12 +47,13 @@ _F32P = ctypes.POINTER(ctypes.c_float)
 _INTP = ctypes.POINTER(ctypes.c_int)
 
 
-def build() -> Path:
-    """Compile `slamio.cpp` if its source changed; returns the library path.
-    Raises with the compiler's output when g++ fails."""
+def build(force: bool = False) -> Path:
+    """Compile `slamio.cpp` if its source changed (or with `force`);
+    returns the library path. Raises with the compiler's output when g++
+    fails."""
     tag = hashlib.sha256(SRC.read_bytes()).hexdigest()[:16]
     out = BUILD_DIR / f"libslamio_{tag}.so"
-    if out.exists():
+    if out.exists() and not force:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")

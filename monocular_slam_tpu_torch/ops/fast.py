@@ -10,8 +10,12 @@ plain version of the CUDA kernel in `ops/fast_score.py`.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
+
+from monocular_slam_tpu_torch.utils.scatter import topk_stable
 
 # 16-point Bresenham circle of radius 3, clockwise from 12 o'clock, (dy, dx)
 RING_OFFSETS = (
@@ -70,6 +74,33 @@ def nms3(score: torch.Tensor) -> torch.Tensor:
     return torch.where(score >= mx, score, 0.0)
 
 
+def subpixel_offsets(img: torch.Tensor, yx: torch.Tensor, threshold: float = 20.0) -> torch.Tensor:
+    """(K, 2) sub-pixel (dy, dx) offsets at integer corners `yx`, by a 1D
+    parabola per axis through the raw FAST-9 scores of each corner's 3x3
+    neighbourhood, recomputed at those pixels from clamped gathers (the
+    same offsets as `subpixel_from_raw` wherever its gate accepts)."""
+    H, W = img.shape[-2:]
+    yi = yx[..., 0].to(torch.long)
+    xi = yx[..., 1].to(torch.long)
+    d1 = torch.arange(-1, 2, device=img.device)
+    ys = yi[:, None, None] + d1[None, :, None]
+    xs = xi[:, None, None] + d1[None, None, :]
+
+    def at(dy: int, dx: int) -> torch.Tensor:
+        return img[torch.clamp(ys + dy, 0, H - 1), torch.clamp(xs + dx, 0, W - 1)]
+
+    d = torch.stack([at(dy, dx) for dy, dx in RING_OFFSETS]) - at(0, 0)[None]
+    s = torch.maximum(_circular_min9(d).amax(0), _circular_min9(-d).amax(0))  # (K, 3, 3)
+    off = torch.stack([_parab(s[:, 0, 1], s[:, 1, 1], s[:, 2, 1]),
+                       _parab(s[:, 1, 0], s[:, 1, 1], s[:, 1, 2])], dim=-1)
+    ok = (
+        (yi >= BORDER + 1) & (yi < H - BORDER - 1)
+        & (xi >= BORDER + 1) & (xi < W - BORDER - 1)
+        & (s[:, 1, 1] > threshold)
+    )
+    return torch.where(ok[:, None], off, 0.0).to(img.dtype)
+
+
 def _parab(sm, s0, sp):
     """1D parabola vertex offset through (-1, sm), (0, s0), (+1, sp)."""
     denom = sm - 2.0 * s0 + sp
@@ -98,3 +129,23 @@ def subpixel_from_raw(raw: torch.Tensor, yx: torch.Tensor, threshold: float = 20
     )
     off = torch.stack([dy_off, dx_off], dim=-1)
     return torch.where(ok[:, None], off, 0.0).to(raw.dtype)
+
+
+class Corners(NamedTuple):
+    yx: torch.Tensor  # (K, 2) float (y, x) at this level
+    score: torch.Tensor  # (K,)
+    valid: torch.Tensor  # (K,) bool
+
+
+def top_corners(score: torch.Tensor, max_corners: int) -> Corners:
+    """The `max_corners` highest entries of an NMS'd score map (lowest
+    flat index first among equal scores, as `lax.top_k`)."""
+    vals, idx = topk_stable(score.reshape(-1), max_corners)
+    W = score.shape[-1]
+    yx = torch.stack([idx // W, idx % W], dim=-1).to(score.dtype)
+    return Corners(yx=yx, score=vals, valid=vals > 0)
+
+
+def detect(img: torch.Tensor, max_corners: int, threshold: float = 20.0) -> Corners:
+    """Fixed-capacity FAST detection: the top `max_corners` NMS survivors."""
+    return top_corners(nms3(corner_score(img, threshold)), max_corners)

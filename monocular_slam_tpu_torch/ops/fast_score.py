@@ -12,7 +12,8 @@ pair per (H_l, W_l) float32 level:
   - on CPU tensors it returns `corner_maps_levels_plain`, the same maps from
     the whole-image tensor forms of `ops/fast.py`.
 
-`corner_maps(img, threshold)` is the one-level case of the same kernel.
+`corner_maps(img, threshold)` is the one-level case of the same kernel;
+`corner_score_nms` and `detect` are the reference's entry points on it.
 
 The kernel is compiled at first use with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, under `_build/` beside this package and
@@ -121,3 +122,14 @@ def corner_maps(img: torch.Tensor, threshold: float = 20.0):
     if img.dim() != 2:
         raise ValueError(f"corner_maps takes a 2-D image, got {tuple(img.shape)}")
     return corner_maps_levels([img], threshold)[0]
+
+
+def corner_score_nms(img: torch.Tensor, threshold: float = 20.0) -> torch.Tensor:
+    """NMS'd FAST-9 score map of one (H, W) float32 image, by K1 on a card;
+    equals `fast.nms3(fast.corner_score(img, threshold))`."""
+    return corner_maps(img, threshold)[0]
+
+
+def detect(img: torch.Tensor, max_corners: int, threshold: float = 20.0) -> fast.Corners:
+    """`fast.detect` on K1's score map."""
+    return fast.top_corners(corner_score_nms(img, threshold), max_corners)

@@ -126,6 +126,27 @@ def descriptors_and_pm1(img, yx, angles, steer_mode: str = "binned"):
     return _descriptors_continuous(img, yx, angles)
 
 
+def descriptors(img: torch.Tensor, yx: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """Packed binned-steering BRIEF descriptors (K, 8) int32."""
+    return descriptors_and_pm1(img, yx, angles)[0]
+
+
+def popcount_u32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits per 32-bit word (SWAR, as DBoW2 counts ORB distances) of
+    int32 bit patterns (or uint32 values in a wider int); int32 counts."""
+    x = x.to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (((x * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+
+
+def hamming_packed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact Hamming distance between packed (..., 8) descriptors; (...,)
+    int32."""
+    return popcount_u32(a ^ b).sum(-1).to(torch.int32)
+
+
 class Features(NamedTuple):
     uv: torch.Tensor  # (N, 2) (x, y) at level-0 scale
     desc: torch.Tensor  # (N, 8) int32 (uint32 bit pattern)

@@ -62,8 +62,9 @@ def _weight_mat(in_size: int, out_size: int, device: torch.device) -> torch.Tens
 
 
 def resize_bilinear(img: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
-    """(H, W) -> hw with `jax.image.resize(..., "bilinear")` semantics."""
-    H, W = img.shape
+    """(..., H, W) -> (..., *hw) with `jax.image.resize(..., "bilinear")`
+    semantics."""
+    H, W = img.shape[-2:]
     h, w = hw
     out = img
     if h != H:
@@ -71,6 +72,14 @@ def resize_bilinear(img: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:
     if w != W:
         out = out @ _weight_mat(W, w, img.device)
     return out
+
+
+def resize_level(img: torch.Tensor, level: int) -> torch.Tensor:
+    """Direct bilinear downscale of level 0 to pyramid level `level`
+    (1.2^-level); `build_pyramid` cascades instead."""
+    if level == 0:
+        return img
+    return resize_bilinear(img, level_shape(img.shape, level))
 
 
 def build_pyramid(img: torch.Tensor, n_levels: int = N_LEVELS):

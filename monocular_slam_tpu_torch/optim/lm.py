@@ -1,6 +1,8 @@
 """Levenberg-Marquardt trust-region schedule shared by the solvers
 (counterpart of `monocular_slam_tpu/optim/lm.py`, g2o's LM rules). All
-updates are branch-free tensor ops, so a solver loop adds no host syncs."""
+updates are branch-free tensor ops, so a solver loop adds no host syncs.
+Each takes leading batch dims: `lam`, `nu`, `rho` of shape (...,) beside
+`H_diag`, `dx`, `b` of shape (..., n), for batched solves."""
 
 from __future__ import annotations
 
@@ -18,19 +20,27 @@ class LMState(NamedTuple):
 
 
 def init_lambda(H_diag: torch.Tensor, tau: float = 1e-5) -> torch.Tensor:
-    return tau * H_diag.max()
+    return tau * H_diag.amax(-1)
 
 
 def gain_ratio(chi2_old, chi2_new, dx, b, lam):
-    denom = (dx * (lam * dx + b)).sum() + 1e-30
+    denom = (dx * (lam[..., None] * dx + b)).sum(-1) + 1e-30
     return (chi2_old - chi2_new) / denom
 
 
-def lm_step_accept(lam, nu, rho, accepted):
+def update_on_success(lam, nu, rho):
     factor = torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
-    lam_new = torch.where(accepted, lam * factor, lam * nu)
-    nu_new = torch.where(accepted, torch.full_like(nu, 2.0), nu * 2.0)
-    return lam_new, nu_new
+    return lam * factor, torch.full_like(nu, 2.0)
+
+
+def update_on_failure(lam, nu):
+    return lam * nu, nu * 2.0
+
+
+def lm_step_accept(lam, nu, rho, accepted):
+    lam_s, nu_s = update_on_success(lam, nu, rho)
+    lam_f, nu_f = update_on_failure(lam, nu)
+    return torch.where(accepted, lam_s, lam_f), torch.where(accepted, nu_s, nu_f)
 
 
 def no_reduce(*tensors, op: str = "sum"):

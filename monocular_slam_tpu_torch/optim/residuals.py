@@ -16,12 +16,23 @@ def _safe_z(z: torch.Tensor) -> torch.Tensor:
     return torch.where(z.abs() < _EPS, torch.where(z < 0, -_EPS, _EPS).to(z.dtype), z)
 
 
-def residual(T, X, k, uv) -> torch.Tensor:
+def project_point(T, X, k):
+    """(Xc (..., 3) camera-frame point, uv_hat (..., 2) its projection)."""
     Xc = se3.apply(T, X)
     z = _safe_z(Xc[..., 2])
     u = k[..., 0] * Xc[..., 0] / z + k[..., 2]
     v = k[..., 1] * Xc[..., 1] / z + k[..., 3]
-    return torch.stack([u, v], dim=-1) - uv
+    return Xc, torch.stack([u, v], dim=-1)
+
+
+def residual(T, X, k, uv) -> torch.Tensor:
+    return project_point(T, X, k)[1] - uv
+
+
+def chi2(r: torch.Tensor, info: torch.Tensor | None = None) -> torch.Tensor:
+    """Squared error per edge, times its scalar information weight."""
+    e2 = (r * r).sum(-1)
+    return e2 if info is None else e2 * info
 
 
 def _small_mm(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:

@@ -6,6 +6,9 @@ from __future__ import annotations
 
 import torch
 
+# the chi-square 95% quantile for 2 degrees of freedom, the inlier gate
+CHI2_2DOF_95 = 5.991
+
 
 def huber(e2: torch.Tensor, delta: float):
     """rho = e2 if e2 <= d^2 else 2 d sqrt(e2) - d^2."""

@@ -162,6 +162,18 @@ def bow_vector(voc: Vocabulary, desc_pm1: torch.Tensor, valid: torch.Tensor) -> 
     return v / torch.clamp(v.abs().sum(), min=1e-12)
 
 
+def bow_vectors_batched(voc: Vocabulary, desc_pm1: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """`bow_vector` of B frames at once: desc_pm1 (B, N, 256), valid (B, N)
+    -> (B, V), one transform and one segment sum over every frame's words."""
+    B, N = valid.shape
+    V = voc.n_words
+    words = transform_words(voc, desc_pm1.reshape(B * N, -1), valid.reshape(-1))
+    rows = torch.arange(B, device=words.device).repeat_interleave(N)
+    tf = segment_sum(valid.reshape(-1).to(torch.float32), rows * V + words, B * V).reshape(B, V)
+    v = tf * voc.weights
+    return v / torch.clamp(v.abs().sum(-1, keepdim=True), min=1e-12)
+
+
 def score_l1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """DBoW2 L1 score 1 - 0.5 |a - b|_1 over the last dim (batched)."""
     return 1.0 - 0.5 * (a - b).abs().sum(-1)

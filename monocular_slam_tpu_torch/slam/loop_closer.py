@@ -103,6 +103,13 @@ class DetectOut(NamedTuple):
     n_cand: torch.Tensor  # int32 eligible candidates
 
 
+def null_detect_out(device=None) -> DetectOut:
+    """The detection outputs of a frame that was not queried."""
+    return DetectOut(torch.tensor(-1, dtype=torch.int32, device=device),
+                     torch.tensor(0.0, device=device), torch.tensor(0.0, device=device),
+                     torch.tensor(0, dtype=torch.int32, device=device))
+
+
 def _select_candidate(scores, eligible):
     """Best eligible row, its score, the similarity floor (median of the
     eligible scores for >= 3 candidates, else their minimum) and the count."""
@@ -267,11 +274,11 @@ class LoopCloser:
         return best_j
 
     # --- Sim3 -------------------------------------------------------------------
-    def compute_sim3(self, state: SlamState, i: int, j: int, gen, u=None):
+    def compute_sim3(self, state: SlamState, i: int, j: int, key, u=None):
         """Sim3 aligning frame i's map geometry to frame j's through K2
         descriptor matches whose features both carry map points. Returns
-        (S (3, 5), n_inliers) or (None, n_inliers). `u`: optional RANSAC
-        uniforms (sim3_iters, N)."""
+        (S (3, 5), n_inliers) or (None, n_inliers). `key`: the RANSAC's
+        host key; `u`: its (sim3_iters, N) uniforms in place of `key`."""
         sl_i, sl_j = self._slot(state, i), self._slot(state, j)
         if sl_i is None or sl_j is None:
             return None, 0
@@ -292,7 +299,7 @@ class LoopCloser:
         pid_j = state.feat_point[sl_j][idx]
         ok = m.ok & (pid_i >= 0) & (pid_j >= 0)
         res = alignment.ransac_sim3_reproj(
-            gen, state.points[torch.clamp(pid_i, min=0).long()],
+            key, state.points[torch.clamp(pid_i, min=0).long()],
             state.points[torch.clamp(pid_j, min=0).long()], ok,
             state.kp_uv[sl_i], state.kp_uv[sl_j][idx], state.k[i], state.k[j],
             state.poses[i], state.poses[j], n_iters=self.lc.sim3_iters,
@@ -317,12 +324,12 @@ class LoopCloser:
         self.loop_edges = [e for e in self.loop_edges if e[0] not in gone and e[1] not in gone]
 
     # --- closure -------------------------------------------------------------------
-    def close(self, state: SlamState, i: int, j: int, gen, keyframes, u=None):
+    def close(self, state: SlamState, i: int, j: int, key, keyframes, u=None):
         """ComputeSim3 -> near-identity gate -> CorrectLoop -> quality guard.
         Returns (state, closed?)."""
         self.timings["n_runs"] += 1
         t0 = time.perf_counter()
-        S, _ = self.compute_sim3(state, i, j, gen, u=u)
+        S, _ = self.compute_sim3(state, i, j, key, u=u)
         self.timings["sim3"] += time.perf_counter() - t0
         if S is None:
             return state, False
@@ -524,7 +531,7 @@ class LoopCloser:
                               points=torch.where(ok, res.points, state.points))
 
     # --- legacy one-call entry --------------------------------------------------------
-    def run(self, state: SlamState, i: int, gen, is_keyframe: bool = True, keyframes=None):
+    def run(self, state: SlamState, i: int, key, is_keyframe: bool = True, keyframes=None):
         """DetectLoop -> ComputeSim3 -> CorrectLoop for keyframe i; returns
         (state, closed?). The session does not call this."""
         if not is_keyframe or self._slot(state, i) is None:
@@ -539,4 +546,4 @@ class LoopCloser:
         self.timings["detect"] += time.perf_counter() - t0
         if j is None:
             return state, False
-        return self.close(state, i, j, gen, keyframes)
+        return self.close(state, i, j, key, keyframes)

@@ -26,6 +26,12 @@ keyframes (dispatched on the state of its frame, applied `stat_lag` frames
 later). So closures, relocalizations and culls fire on the same frames as
 in the reference.
 
+The session is keyed like the reference: `PRNGKey(seed)`, split once per
+bootstrap attempt, tracked frame, closure and relocalization candidate, at
+the reference's call sites and in its order (`_split`). Each RANSAC makes
+its uniforms from its key on the session's device (`utils/prng.py`), so the
+same seed gives the reference's draws and its trajectory.
+
 `prewarm` pays the step's one-time costs (kernel builds, the first
 extraction, functorch's first-use imports) before frame 0;
 `add_frame_from_buffer` takes frames from a buffer already on the device.
@@ -51,6 +57,7 @@ from monocular_slam_tpu_torch.slam import loop_closer as lc_mod
 from monocular_slam_tpu_torch.slam import state as state_mod
 from monocular_slam_tpu_torch.slam.config import SlamConfig
 from monocular_slam_tpu_torch.slam.state import SlamState
+from monocular_slam_tpu_torch.utils import prng
 from monocular_slam_tpu_torch.utils.device import resolve_device
 
 
@@ -139,8 +146,7 @@ class SlamSession:
             raise ValueError(f"loop closer on {loop_closer.device}, session on {self.device}")
         self.loop_closer = loop_closer
         self.state: SlamState = state_mod.empty_state(cfg, self.device)
-        self.gen = torch.Generator(device=self.device)
-        self.gen.manual_seed(seed)
+        self.key = prng.PRNGKey(seed)
         self.stats: list[FrameStats] = []
         self.timestamps: list[float] = []
         self._next = 0
@@ -166,6 +172,11 @@ class SlamSession:
         self._slot_frame: list[int] = [-1] * S
         self._free_slots: list[int] = list(range(S - 1, -1, -1))
         self._protect_window = cfg.track.back_traverse + 2
+
+    def _split(self) -> np.ndarray:
+        """The next subkey: `key, sub = split(key)`, on the host."""
+        self.key, sub = prng.split(self.key)
+        return sub
 
     # --- steering health (auto mode) -------------------------------------
     def _update_steer_health(self, st: FrameStats) -> None:
@@ -274,9 +285,10 @@ class SlamSession:
         extraction of a zero image of `cfg.image_wh` in each steering mode
         the session can use; with a loop closer, the pose graph's edge
         Jacobians and the Sim3 RANSAC polish on tiny inputs, whose first
-        `torch.func` transforms import most of functorch. The session's
-        state, generator and counters are left as they were (the kernels'
-        launch counters count the warm-up extraction)."""
+        `torch.func` transforms import most of functorch, drawn from its own
+        `PRNGKey(0)` as the reference's prewarm does. The session's state,
+        key and counters are left as they were (the kernels' launch counters
+        count the warm-up extraction)."""
         t0 = time.perf_counter()
         dev = self.device
         if dev.type == "cuda":
@@ -294,14 +306,13 @@ class SlamSession:
             if self.loop_closer is not None:
                 S = sim3.identity(device=dev)[None].expand(2, 3, 5)
                 pose_graph.edge_jacobians(S, S, S)
-                g = torch.Generator().manual_seed(0)
-                Y = torch.rand((8, 3), generator=g).to(dev) + torch.tensor([0.0, 0.0, 4.0], device=dev)
+                k_pts, k_ransac = prng.split(prng.PRNGKey(0))
+                Y = prng.uniform_on(k_pts, (8, 3), dev) + torch.tensor([0.0, 0.0, 4.0], device=dev)
                 T = torch.eye(4, device=dev)[:3]
                 k = torch.tensor([100.0, 100.0, 50.0, 50.0], device=dev)
                 uv = cam.project(k, Y)
-                alignment.ransac_sim3_reproj(None, Y, Y, torch.ones(8, dtype=torch.bool, device=dev),
-                                             uv, uv, k, k, T, T, n_iters=2,
-                                             u=torch.rand((2, 8), generator=g).to(dev))
+                alignment.ransac_sim3_reproj(k_ransac, Y, Y, torch.ones(8, dtype=torch.bool, device=dev),
+                                             uv, uv, k, k, T, T, n_iters=2)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
@@ -334,7 +345,7 @@ class SlamSession:
         if i == 0:
             st.tracked = True
         elif not self._initialized:
-            res = tracker.bootstrap(self.state, self.gen, self.cfg, self._init_ref, i)
+            res = tracker.bootstrap(self.state, self._split(), self.cfg, self._init_ref, i)
             self.state = res.state
             ok, n_inl, n_pts = torch.stack([res.ok.long(), res.n_inliers.long(),
                                             res.n_points.long()]).tolist()
@@ -361,7 +372,7 @@ class SlamSession:
         block. One host pull per frame."""
         cfg = self.cfg
         m = cfg.mapping
-        tres = tracker.track(self.state, i, self.gen, cfg)
+        tres = tracker.track(self.state, i, self._split(), cfg)
         self.state = tres.state
         last_kf = self._last_kf
         kf0 = max(last_kf, 0)
@@ -462,7 +473,7 @@ class SlamSession:
             # the graph spans every ever-promoted keyframe: culled ones keep
             # their poses and stay valid vertices
             with torch.inference_mode():
-                self.state, closed = lc.close(self.state, i, j, self.gen,
+                self.state, closed = lc.close(self.state, i, j, self._split(),
                                               keyframes=list(self._keyframes))
             st.loop_closed = closed
 
@@ -486,7 +497,7 @@ class SlamSession:
                      if np.isfinite(scores[f]) and f < i and slot_of[f] >= 0 and pose_valid[f]]
             for cand in cands[: self.cfg.track.reloc_candidates]:
                 self.reloc_attempts += 1
-                res = tracker.relocalize(self.state, i, cand, self.gen, self.cfg)
+                res = tracker.relocalize(self.state, i, cand, self._split(), self.cfg)
                 ok, n = torch.stack([res.ok.to(torch.int64), res.n_inliers.to(torch.int64)]).tolist()
                 if ok:
                     self.reloc_successes += 1

@@ -51,26 +51,28 @@ def n_slots(cfg: SlamConfig) -> int:
     return cfg.max_slots if cfg.max_slots else cfg.max_frames
 
 
-def empty_state(cfg: SlamConfig, device=None) -> SlamState:
+def empty_state(cfg: SlamConfig, device=None, dtype=torch.float32) -> SlamState:
+    """The state of a session before its first frame; `dtype` is the float
+    fields' type."""
     F, N, P = cfg.max_frames, cfg.frontend.n_features, cfg.max_points
     S = n_slots(cfg)
-    f32 = dict(dtype=torch.float32, device=device)
+    fl = dict(dtype=dtype, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     b = dict(dtype=torch.bool, device=device)
-    eye = torch.cat([torch.eye(3, **f32), torch.zeros((3, 1), **f32)], dim=1)
+    eye = torch.cat([torch.eye(3, **fl), torch.zeros((3, 1), **fl)], dim=1)
     return SlamState(
         poses=eye.repeat(F, 1, 1),
         pose_valid=torch.zeros(F, **b),
-        k=torch.zeros((F, 4), **f32),
-        kp_uv=torch.zeros((S, N, 2), **f32),
-        kp_scale=torch.ones((S, N), **f32),
+        k=torch.zeros((F, 4), **fl),
+        kp_uv=torch.zeros((S, N, 2), **fl),
+        kp_scale=torch.ones((S, N), **fl),
         kp_valid=torch.zeros((S, N), **b),
         desc=torch.zeros((S, N, 8), **i32),
         desc_pm1=torch.zeros((S, N, 256), dtype=torch.int8, device=device),
         feat_point=torch.full((S, N), -1, **i32),
         slot_of=torch.full((F,), -1, **i32),
         frame_of=torch.full((S,), -1, **i32),
-        points=torch.zeros((P, 3), **f32),
+        points=torch.zeros((P, 3), **fl),
         point_valid=torch.zeros(P, **b),
         n_points=torch.zeros((), **i32),
         n_frames=torch.zeros((), **i32),

@@ -4,8 +4,9 @@ their helpers in `monocular_slam_tpu/slam/tracker.py`).
 
 Frame ids `i`, `f0`, `f1` are host ints (the session knows them); every
 quantity derived from the state stays on the device, and a failed step
-returns the input state through `state.select`. The RANSAC draws come from
-a `torch.Generator`; tests pass the reference's uniforms through `u`.
+returns the input state through `state.select`. Each step takes the
+reference's host key (`utils/prng.py`) and draws what the reference draws
+from it; `u` takes the RANSAC uniforms themselves in place of the key.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from monocular_slam_tpu_torch.optim import pose_ba, window_ba
 from monocular_slam_tpu_torch.slam import state as state_mod
 from monocular_slam_tpu_torch.slam.config import SlamConfig
 from monocular_slam_tpu_torch.slam.state import SlamState
+from monocular_slam_tpu_torch.utils import prng
 from monocular_slam_tpu_torch.utils.scatter import (
     mark, put, segment_min, set_last, set_last_2d, take, topk_stable,
 )
@@ -33,11 +35,12 @@ class BootstrapResult(NamedTuple):
     n_points: torch.Tensor
 
 
-def bootstrap(state: SlamState, gen, cfg: SlamConfig, f0: int = 0, f1: int = 1,
+def bootstrap(state: SlamState, key, cfg: SlamConfig, f0: int = 0, f1: int = 1,
               u=None) -> BootstrapResult:
     """Two-view initialization between frames f0 and f1: match -> RANSAC F
     -> E -> cheirality pose -> DLT -> two-view BA -> map points observed in
-    both frames. `u`: optional (ransac_iters, N) RANSAC uniforms."""
+    both frames. `u`: the (ransac_iters, N) RANSAC uniforms in place of
+    `key`."""
     s0 = state_mod.slot_index(state, f0)
     s1 = state_mod.slot_index(state, f1)
     kv0, kv1 = take(state.kp_valid, s0), take(state.kp_valid, s1)
@@ -51,7 +54,7 @@ def bootstrap(state: SlamState, gen, cfg: SlamConfig, f0: int = 0, f1: int = 1,
     k0, k1 = state.k[f0], state.k[f1]
 
     res = epipolar.ransac_fundamental(
-        gen, uv0, uv1, m.ok, n_iters=cfg.init.ransac_iters,
+        key, uv0, uv1, m.ok, n_iters=cfg.init.ransac_iters,
         thresh=cfg.init.sampson_px, u=u,
     )
     E = epipolar.essential_from_fundamental(res.F, k0, k1)
@@ -125,11 +128,12 @@ class RelocResult(NamedTuple):
     n_inliers: torch.Tensor
 
 
-def relocalize(state: SlamState, i: int, cand: int, gen, cfg: SlamConfig, u=None) -> RelocResult:
+def relocalize(state: SlamState, i: int, cand: int, key, cfg: SlamConfig, u=None) -> RelocResult:
     """Re-acquire lost frame i against keyframe `cand` (chosen on the host
     by BoW score): descriptor match through K2 -> the candidate's map
     associations -> PnP RANSAC -> GN motion-only refine. Writes the pose
-    and the inlier associations. `u`: optional (pnp_iters, N) uniforms."""
+    and the inlier associations. `u`: the (pnp_iters, N) uniforms in place
+    of `key`."""
     si = state_mod.slot_index(state, i)
     sc = state_mod.slot_index(state, cand)
     cand_ok = (state.slot_of[cand] >= 0) & state.pose_valid[cand]
@@ -146,7 +150,7 @@ def relocalize(state: SlamState, i: int, cand: int, gen, cfg: SlamConfig, u=None
     uv_i = take(state.kp_uv, si)
     k_i = state.k[i]
     pres = pnp.solve_pnp_ransac(
-        gen, X, uv_i, k_i, has & take(state.kp_valid, si), n_iters=cfg.track.pnp_iters,
+        key, X, uv_i, k_i, has & take(state.kp_valid, si), n_iters=cfg.track.pnp_iters,
         px_thresh=cfg.track.pnp_px_thresh, min_inliers=cfg.track.reloc_min_inliers, u=u,
     )
     rres = pose_ba.refine_pose(pres.T, X, uv_i, k_i, (pres.inliers & has).to(uv_i.dtype),
@@ -298,9 +302,10 @@ def _predict_pose(state: SlamState, i: int) -> torch.Tensor:
     return se3.compose(delta, base)
 
 
-def track(state: SlamState, i: int, gen, cfg: SlamConfig, u=None) -> TrackResult:
-    """PnP tracking of frame i + new-point triangulation. `u`: optional
-    (pnp_iters, N) PnP-RANSAC uniforms."""
+def track(state: SlamState, i: int, key, cfg: SlamConfig, u=None) -> TrackResult:
+    """PnP tracking of frame i + new-point triangulation. PnP draws from
+    the first half of `split(key)`, as in the reference; `u`: the
+    (pnp_iters, N) PnP-RANSAC uniforms in place of `key`."""
     N = state.feat_point.shape[1]
     dtype = state.kp_uv.dtype
     si = state_mod.slot_index(state, i)
@@ -327,8 +332,9 @@ def track(state: SlamState, i: int, gen, cfg: SlamConfig, u=None) -> TrackResult
                                     cfg.track.predict_radius_px, cfg)
 
     Xmap = state.points[torch.clamp(pid, min=0).long()]
+    k_pnp = None if key is None else prng.split(key)[0]
     pres = pnp.solve_pnp_ransac(
-        gen, Xmap, uv_i, k_i, (pid >= 0) & kv_i,
+        k_pnp, Xmap, uv_i, k_i, (pid >= 0) & kv_i,
         n_iters=cfg.track.pnp_iters, px_thresh=cfg.track.pnp_px_thresh,
         min_inliers=cfg.track.pnp_min_inliers, T_init=T_pred, u=u,
     )

@@ -15,14 +15,22 @@ so that the port makes the same data from the same seed without JAX:
   `hi << 32 | lo`;
 - `fold_in(key, d)` hashes the counter pair `[0, d]`;
 - `uniform` fills the mantissa of a float in [1, 2) with the top bits,
-  subtracts 1, scales, and clamps at `minval`; `normal` (float32) is
+  subtracts 1, scales, and clamps at `minval`; XLA fuses the scale
+  `u * (maxval - minval) + minval` into one multiply-add with a single
+  rounding, which float32 draws reproduce in float64 (the float32 product
+  and the sum are exact there for the spans used here); float64 draws
+  round twice, so they are exact only where the span is a power of two; `normal` (float32) is
   `sqrt(2) * erfinv(uniform(nextafter(-1, 0), 1))`; `bernoulli` is
   `uniform < p`; `randint` draws two bit arrays from a split key and
   reduces them with the span multiplier.
 
 The float dtype defaults to float32 and the int dtype to int32, JAX's
-defaults without `jax_enable_x64`. Everything is numpy uint32 arithmetic on
-the host (torch's uint32 support is thin); callers move results to a device.
+defaults without `jax_enable_x64`. The numpy functions are uint32 arithmetic
+on the host (torch's uint32 support is thin). `bits_on` and `uniform_on` are
+the same hash in torch int64 ops (uint32 words held in int64, masked after
+every add and shift) on a tensor device, bit for bit with 32-bit
+`random_bits` and float32 `uniform`: the session's RANSAC draws are made
+there, from a key that stays on the host.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
 _U32 = np.uint32
@@ -109,7 +118,55 @@ def uniform(key: np.ndarray, shape=(), dtype=np.float32, minval=0.0, maxval=1.0)
     one = np.array(1.0, dtype).view(uint)
     floats = ((bits >> uint.type(nbits - nmant)) | one).view(dtype) - dtype.type(1.0)
     lo, hi = np.asarray(minval, dtype), np.asarray(maxval, dtype)
-    return np.maximum(lo, floats * (hi - lo) + lo).astype(dtype)
+    if dtype == np.float32:  # XLA's fused multiply-add, one rounding
+        scaled = (floats.astype(np.float64) * np.float64(hi - lo) + np.float64(lo)).astype(dtype)
+    else:
+        scaled = floats * (hi - lo) + lo
+    return np.maximum(lo, scaled).astype(dtype)
+
+
+# --- the same hash in torch int64 ops, on a device ----------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _threefry2x32_on(k1: int, k2: int, x1: torch.Tensor, x2: torch.Tensor):
+    """`threefry2x32` on int64 tensors holding uint32 words."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = (x1 + ks[0]) & _M32
+    x2 = (x2 + ks[1]) & _M32
+    for block in range(5):
+        for r in _ROT[block % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = (((x2 << r) & _M32) | (x2 >> (32 - r))) ^ x1
+        x1 = (x1 + ks[(block + 1) % 3]) & _M32
+        x2 = (x2 + ((ks[(block + 2) % 3] + block + 1) & _M32)) & _M32
+    return x1, x2
+
+
+def _hash_iota_on(key: np.ndarray, shape, device):
+    key = np.asarray(key, _U32)
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device).reshape(shape)
+    return _threefry2x32_on(int(key[0]), int(key[1]), idx >> 32, idx & _M32)
+
+
+def bits_on(key: np.ndarray, shape, device) -> torch.Tensor:
+    """`random_bits(key, 32, shape)` made on `device`, as int64 holding the
+    uint32 bits. `key` is a host (2,) uint32 key."""
+    b1, b2 = _hash_iota_on(key, tuple(shape), device)
+    return b1 ^ b2
+
+
+def uniform_on(key: np.ndarray, shape, device, minval: float = 0.0,
+               maxval: float = 1.0) -> torch.Tensor:
+    """float32 `uniform(key, shape, minval=minval, maxval=maxval)` made on
+    `device`, bit for bit."""
+    mant = (bits_on(key, shape, device) >> 9) | 0x3F800000
+    floats = mant.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=device)
+    span = torch.tensor(maxval, dtype=torch.float32, device=device) - lo
+    scaled = (floats.double() * span.double() + lo.double()).float()
+    return torch.maximum(lo, scaled)
 
 
 # XLA's single-precision erf_inv (Giles' polynomial in w = -log1p(-x^2))

@@ -541,3 +541,22 @@ def test_nccl_world1_distributed_solvers_match(cuda, nccl_world):
     b = pose_graph.optimize_cg(g, n_iters=5, max_cg_iters=100)
     torch.testing.assert_close(a.chi2_history, b.chi2_history, rtol=1e-5, atol=0)
     torch.testing.assert_close(a.vertices, b.vertices, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(512, 1000), (2000, 1000), (256, 1000), (7, 13)])
+def test_keyed_draws_on_cuda_match_numpy(cuda, shape):
+    """The session's RANSAC draws made on the card equal the numpy
+    generator bit for bit, and `_sample_indices` picks the same indices on
+    the card as on the CPU."""
+    from monocular_slam_tpu_torch.geometry import epipolar
+    from monocular_slam_tpu_torch.utils import prng
+
+    for seed in (0, 3, 12345):
+        key = prng.PRNGKey(seed)
+        got = prng.uniform_on(key, shape, cuda, minval=1e-6, maxval=1.0).cpu().numpy()
+        np.testing.assert_array_equal(got, prng.uniform(key, shape, np.float32, 1e-6, 1.0))
+        mask = torch.as_tensor(np.random.RandomState(seed).rand(shape[1]) > 0.3)
+        size = min(8, shape[1])
+        np.testing.assert_array_equal(
+            epipolar._sample_indices(key, shape[0], size, mask.to(cuda)).cpu().numpy(),
+            epipolar._sample_indices(key, shape[0], size, mask).numpy())

@@ -164,3 +164,105 @@ def test_corner_maps_levels_rejects_bad_tables():
         tfs.corner_maps_levels([])
     with pytest.raises(ValueError):
         tfs.corner_maps_levels([torch.zeros(8, 8, device="meta")])
+
+
+# --- the reference's remaining public front-end functions ------------------------------
+
+def _corners_equal(got, ref):
+    for f in ("yx", "score", "valid"):
+        np.testing.assert_array_equal(np32(getattr(got, f)), np.asarray(getattr(ref, f)), err_msg=f)
+
+
+@pytest.mark.parametrize("route", ["fast", "fast_score"])
+def test_detect_and_corner_score_nms(route):
+    """`fast.detect` (and its `Corners`) against the reference's XLA route;
+    `fast_score.detect` / `corner_score_nms` (K1's route, its plain
+    version here) against the reference's Pallas route, interpreted. 300
+    slots take every corner and then zero-score ties, which both sides fill
+    in flat-index order."""
+    from monocular_slam_tpu_torch.ops import fast as tfast
+
+    img = _level_test_image(3)
+    thr = 20.0
+    if route == "fast":
+        got, ref = tfast.detect(t32(img), 300, thr), jfast.detect(jnp32(img), 300, thr)
+    else:
+        got = tfs.detect(t32(img), 300, thr)
+        ref = jfs.detect(jnp32(img), 300, thr, interpret=True)
+        np.testing.assert_array_equal(np32(tfs.corner_score_nms(t32(img), thr)),
+                                      np32(jfs.corner_score_nms(jnp32(img), thr, interpret=True)))
+    assert isinstance(got, tfast.Corners)
+    _corners_equal(got, ref)
+    assert 0 < int(np32(got.valid).sum()) < 300
+
+
+def test_subpixel_offsets():
+    """The gather route against the reference's, and against the port's
+    raw-map route wherever its gate accepts."""
+    from monocular_slam_tpu_torch.ops import fast as tfast
+
+    img = _level_test_image(4)
+    c = jfast.detect(jnp32(img), 200, 20.0)
+    yx = np32(c.yx)
+    yx[:4] = [[0, 0], [2, 50], [60, 159], [119, 80]]  # border corners: clamped gathers, gated
+    got = np32(tfast.subpixel_offsets(t32(img), t32(yx)))
+    np.testing.assert_allclose(got, np32(jfast.subpixel_offsets(jnp32(img), jnp32(yx))), atol=1e-6)
+    raw = tfast.corner_score_raw(t32(img))
+    np.testing.assert_allclose(got, np32(tfast.subpixel_from_raw(raw, t32(yx))), atol=1e-6)
+    assert np.abs(got).max() > 0.1
+
+
+@pytest.mark.parametrize("fn", ["descriptors", "popcount_u32", "hamming_packed"])
+def test_orb_packed_helpers(fn):
+    """Packed descriptors and the SWAR popcount / Hamming on the port's
+    int32 bit patterns against the reference's uint32."""
+    rng = np.random.RandomState(8)
+    a = rng.randint(0, 2**32, (40, 8), dtype=np.uint64).astype(np.uint32)
+    b = rng.randint(0, 2**32, (40, 8), dtype=np.uint64).astype(np.uint32)
+    a[0] = 0xFFFFFFFF  # every bit set: the int32 pattern is -1
+    if fn == "descriptors":
+        img = _level_test_image(5)
+        yx = np.stack([rng.randint(20, 100, 64), rng.randint(20, 140, 64)], -1).astype(np.float32)
+        ang = rng.uniform(-np.pi, np.pi, 64).astype(np.float32)
+        got = np32(torb.descriptors(t32(img), t32(yx), t32(ang))).view(np.uint32)
+        ref = np.asarray(jorb.descriptors(jnp32(img), jnp32(yx), jnp32(ang)))
+    elif fn == "popcount_u32":
+        got = np32(torb.popcount_u32(torch.as_tensor(a.view(np.int32))))
+        ref = np.asarray(jorb.popcount_u32(jnp.asarray(a)))
+    else:
+        got = np32(torb.hamming_packed(torch.as_tensor(a.view(np.int32)),
+                                       torch.as_tensor(b.view(np.int32))))
+        ref = np.asarray(jorb.hamming_packed(jnp.asarray(a), jnp.asarray(b)))
+        np.testing.assert_array_equal(got, (np.unpackbits((a ^ b).view(np.uint8), axis=-1)
+                                            .sum(-1)))
+    np.testing.assert_array_equal(got, ref.astype(got.dtype))
+
+
+@pytest.mark.parametrize("level", [0, 1, 3, 7])
+def test_resize_level(level):
+    from monocular_slam_tpu.ops import pyramid as jpyr
+    from monocular_slam_tpu_torch.ops import pyramid as tpyr
+
+    img = _level_test_image(6, 96, 128)
+    np.testing.assert_allclose(np32(tpyr.resize_level(t32(img), level)),
+                               np32(jpyr.resize_level(jnp32(img), level)), atol=2e-3)
+
+
+def test_bow_vectors_batched():
+    """Three frames in one call against the reference's `vmap` and against
+    one `bow_vector` call per frame."""
+    from monocular_slam_tpu.retrieval import vocabulary as jvoc
+    from monocular_slam_tpu_torch.retrieval import vocabulary as tvoc
+
+    rng = np.random.RandomState(9)
+    jv = jvoc.train(_pm1(rng, 400), k=4, L=3, seed=0)
+    tv = tvoc.vocabulary_from_numpy([np.asarray(n) for n in jv.nodes], np.asarray(jv.weights),
+                                    jv.k, jv.L, device="cpu")
+    d = np.stack([_pm1(rng, 120) for _ in range(3)])
+    v = rng.rand(3, 120) > 0.2
+    ref = np32(jvoc.bow_vectors_batched(jv, jnp.asarray(d), jnp.asarray(v)))
+    got = np32(tvoc.bow_vectors_batched(tv, torch.as_tensor(d), torch.as_tensor(v)))
+    np.testing.assert_allclose(got, ref, atol=1e-6)
+    for f in range(3):
+        np.testing.assert_allclose(got[f], np32(tvoc.bow_vector(tv, torch.as_tensor(d[f]),
+                                                                torch.as_tensor(v[f]))), atol=1e-7)

@@ -154,3 +154,28 @@ def test_pnp_ransac_injected():
     np.testing.assert_array_equal(np32(rt.inliers), np.asarray(rj.inliers))
     np.testing.assert_allclose(np32(rt.T), np32(rj.T), atol=1e-4)
     assert int(rt.n_inliers) == int(rj.n_inliers) > 150
+
+
+@pytest.mark.parametrize("fn", ["distort_radtan", "matrix_to_intrinsics", "epipolar_line",
+                                "reprojection_error", "reprojection_error_batched"])
+def test_camera_and_two_view_helpers(fn):
+    rng = np.random.RandomState(12)
+    dist = np.array([0.26, -0.95, -0.005, 0.003, 1.16], np.float32)  # TUM fr1-like radtan
+    xy = rng.uniform(-0.6, 0.6, (64, 2)).astype(np.float32)
+    Kmat = np32(jcam.intrinsics_to_matrix(jnp32(K)))
+    F = rng.randn(3, 3).astype(np.float32)
+    uv = rng.uniform(0, 640, (64, 2)).astype(np.float32)
+    X = rng.uniform([-2, -1.5, 3], [2, 1.5, 7], (64, 3)).astype(np.float32)
+    T = random_poses(rng, 1)[0]
+    Tb = random_poses(rng, 4)
+    cases = {
+        "distort_radtan": (lambda m, a: m.distort_radtan(*a), tcam, jcam, (dist, xy)),
+        "matrix_to_intrinsics": (lambda m, a: m.matrix_to_intrinsics(*a), tcam, jcam, (Kmat,)),
+        "epipolar_line": (lambda m, a: m.epipolar_line(*a), tepi, jepi, (F, uv)),
+        "reprojection_error": (lambda m, a: m.reprojection_error(*a), ttri, jtri, (K, T, X, uv)),
+        "reprojection_error_batched": (lambda m, a: m.reprojection_error(*a), ttri, jtri,
+                                       (K, Tb, X[None, :8].repeat(4, 0), uv[None, :8].repeat(4, 0))),
+    }
+    call, tmod, jmod, args = cases[fn]
+    assert_close(call(tmod, [t32(a) for a in args]), call(jmod, [jnp32(a) for a in args]),
+                 rtol=1e-5, atol=1e-4)

@@ -72,6 +72,38 @@ def test_render_sequence_matches_reference(course):
     np.testing.assert_array_equal(k, ref_k)
 
 
+def test_render_sequence_key_and_intrinsics(course):
+    """`key` in place of the seed gives the seed's course; `k` replaces the
+    scaled `SYNTH_K`, as the reference's `render_sequence(key, k=...)`, and
+    `Plane` is the reference's name for the planes."""
+    imgs, poses, k = course
+    k2 = np.array([150.0, 140.0, 80.0, 60.0])
+    got, got_poses, got_k = render.render_sequence(key=prng.PRNGKey(3), k=k2, device="cpu",
+                                                   **COURSE)
+    with jax.enable_x64(False):
+        ref, _, ref_k = jrender.render_sequence(jax.random.PRNGKey(3), k=k2, **COURSE)
+    ref8 = np.clip(ref, 0, 255).astype(np.uint8).astype(np.int32)
+    diff = np.abs(got.numpy().astype(np.int32) - ref8)
+    assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3, (diff.max(), (diff > 0).mean())
+    np.testing.assert_array_equal(got_k, ref_k)
+    np.testing.assert_array_equal(got_poses, poses)
+    assert not np.array_equal(got.numpy(), imgs)  # other intrinsics, another view
+    assert render.Plane is render.Planes and set(render.Plane._fields) == set(jrender.Plane._fields)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_arc_trajectory_dtype(dtype):
+    """float32 bit for bit (the reference's fused multiply-adds); float64
+    within 1e-14 (plain float64 arithmetic)."""
+    got = synthetic.arc_trajectory(30, 1.8, getattr(np, dtype), ang_step=0.06)
+    ref = np.asarray(jsyn.arc_trajectory(30, 1.8, getattr(jax.numpy, dtype), ang_step=0.06))
+    assert got.dtype == ref.dtype == np.dtype(dtype)
+    if dtype == "float32":
+        np.testing.assert_array_equal(got, ref)
+    else:
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-14)
+
+
 # --- synthetic sequences ---------------------------------------------------------
 
 def test_feature_sequence_matches_reference():

@@ -46,6 +46,23 @@ def test_state_roundtrip():
     _assert_state_equal(tstate.state_from_numpy(ref), ref)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_empty_state_dtype(dtype):
+    """`empty_state(cfg, dtype=...)`: the reference's fields, dtypes and
+    values."""
+    jcfg, tcfg = _cfgs()
+    ref = _np_state(jstate.empty_state(jcfg, dtype=getattr(jnp, dtype)))
+    got = tstate.empty_state(tcfg, dtype=getattr(torch, dtype))
+    for n, v in ref.items():
+        t = getattr(got, n)
+        if v.dtype.kind == "f":
+            assert str(t.dtype) == f"torch.{dtype}", n
+            np.testing.assert_array_equal(t.numpy(), v, err_msg=n)
+        else:
+            np.testing.assert_array_equal(tstate.state_to_numpy(got)[n], v.astype(
+                tstate.state_to_numpy(got)[n].dtype), err_msg=n)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_set_last_matches_reference_scatter(seed):
     rng = np.random.RandomState(seed)
@@ -254,15 +271,15 @@ def test_add_frame_from_buffer(image_course):
 def test_prewarm_keeps_the_trajectory(image_course):
     """`prewarm` (the zero-image extraction in both steering modes and the
     loop closer's functorch paths) returns its seconds and leaves state,
-    generator and counters alone: the trajectory is bit-identical."""
+    session key and counters alone: the trajectory is bit-identical."""
     from monocular_slam_tpu_torch.slam import state as tstate
 
     imgs, k, cfg, (poses, valid, _) = image_course
     sess = _image_session(cfg)
     before = tstate.state_to_numpy(sess.state)
-    gen_state = sess.gen.get_state()
+    key = sess.key.copy()
     secs = sess.prewarm(image=True)
-    assert secs > 0.0 and torch.equal(sess.gen.get_state(), gen_state)
+    assert secs > 0.0 and np.array_equal(sess.key, key)
     after = tstate.state_to_numpy(sess.state)
     assert all(np.array_equal(before[n], after[n]) for n in before)
     assert sess._next == 0 and not sess.stats and sess.reloc_attempts == 0
