@@ -9,6 +9,7 @@
     python3 chip_profile.py detsum [ROOT]  # the scale solvers and the session, package from ROOT
     python3 chip_profile.py fps [ROOT]     # the session's and the loop course's fps, package from ROOT
     python3 chip_profile.py nccl     # host cost of one all-reduce at NCCL world size 1
+    python3 chip_profile.py k3ab     # the loop and key-3 courses with the step's eigh/svd on K3 or torch.linalg
     python3 chip_profile.py cgsteps  # chip_smoke.py's long phase at the reference's PCG steps and the port's
 
 `cgdense`: the loop course of `chip_smoke.py`, then global BA on its
@@ -40,6 +41,20 @@ frames 10-59 of the second run) and its loop course once (fps, closures,
 relocalization attempts), with `monocular_slam_tpu_torch` and
 `chip_smoke.py` imported from ROOT (default: this checkout). Run it on two
 checkouts in one call, in turns, to compare them on one card.
+
+`k3ab`: the loop course and the committed key-3 fixture's course of
+`chip_smoke.py`, each four ways: op by op with the parent's calls (the
+step's `eigh`, 3x3 `svd` and `svdvals` on `torch.linalg`, and
+`project_to_so3`'s determinant by `torch.linalg.det` in place of the
+closed form); op by op with `eigh` and `svd` sent to `torch.linalg`
+(cuSOLVER; it checks its status on the host, so it cannot be captured);
+op by op on K3, with every K3 call also run
+through `torch.linalg` on the same input and the two held together
+(eigenvalues relative to the largest, eigenvectors |<v, v_plain>| where the
+eigengap exceeds 1e-3 of the largest, as `chip_smoke.py`'s k3 phase
+does); and on K3 through the captured step programs (the session's
+route). Prints, per course and route, the outcome (closures, ATE; or the
+distance from the reference's run) and the calls' agreement.
 
 `nccl`: a one-rank NCCL group in this process; 500 calls of
 `distributed.all_reduce` on a (1000, 6) float32 tensor, host seconds per
@@ -92,6 +107,7 @@ from __future__ import annotations
 
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -106,18 +122,37 @@ def _sync():
 
 
 class StageTimer:
-    """Wraps module or class attributes with synchronized timers."""
+    """Wraps module or class attributes with synchronized timers. A call
+    made while a step program is built (its warm-up run and its capture,
+    inside `graph.Program`'s constructor) is not timed: the program's
+    replays time those stages."""
 
     def __init__(self):
+        from monocular_slam_tpu_torch.utils import graph
+
         self.ms: dict[str, float] = {}
         self.calls: dict[str, int] = {}
         self._undo = []
+        self._building = 0
+        build = graph.Program.__init__
+
+        def building(prog, *a, **kw):
+            self._building += 1
+            try:
+                build(prog, *a, **kw)
+            finally:
+                self._building -= 1
+
+        graph.Program.__init__ = building
+        self._undo.append((graph.Program, "__init__", build))
 
     def wrap(self, owner, attr: str, name: str):
         orig = getattr(owner, attr)
 
         @functools.wraps(orig)
         def timed(*a, **kw):
+            if self._building:
+                return orig(*a, **kw)  # inside a step program: timed by its replays
             _sync()
             t0 = time.perf_counter()
             out = orig(*a, **kw)
@@ -141,8 +176,10 @@ def stage_timer() -> StageTimer:
     from monocular_slam_tpu_torch.ops import features, hamming
     from monocular_slam_tpu_torch.optim import cg_ba, pose_graph
     from monocular_slam_tpu_torch.slam import keyframes, local_ba, loop_closer, mapping, tracker
+    from monocular_slam_tpu_torch.utils import graph
 
     t = StageTimer()
+    t.wrap(graph.Program, "replay", "step program replays (track; mapping + detect)")
     t.wrap(features, "extract", "extract (K1 inside)")
     t.wrap(tracker, "track", "tracker.track")
     t.wrap(tracker, "bootstrap", "tracker.bootstrap")
@@ -531,6 +568,78 @@ def cg_steps(smi: str) -> int:
     return 0
 
 
+def k3_ab(smi: str) -> int:
+    import chip_smoke as cs
+    from monocular_slam_tpu_torch.geometry import so3
+    from monocular_slam_tpu_torch.ops import small_eigh
+    from monocular_slam_tpu_torch.retrieval import vocabulary
+
+    kernel = small_eigh.eigh, small_eigh.svd3, small_eigh.svdvals3, so3.det3x3
+    agree = {}
+
+    def note(name, shape, val_err, dot):
+        row = agree.setdefault(name, {"calls": 0, "n": set(), "max_batch": 0,
+                                      "max_value_rel_err": 0.0, "min_vector_dot": 1.0})
+        row["calls"] += 1
+        row["n"].add(int(shape[-1]))
+        row["max_batch"] = max(row["max_batch"], math.prod(shape[:-2]))
+        row["max_value_rel_err"] = max(row["max_value_rel_err"], val_err)
+        if dot is not None:
+            row["min_vector_dot"] = min(row["min_vector_dot"], dot)
+
+    def checked_eigh(A):
+        w, V = kernel[0](A)
+        if A.numel():
+            wp, Vp = small_eigh.eigh_plain(A)
+            scale = wp.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+            note("eigh", A.shape, float(((w - wp).abs() / scale).max()),
+                 cs._vec_agreement(V, Vp, wp))
+        return w, V
+
+    def checked_svd3(M):
+        U, S, Vt = kernel[1](M)
+        if M.numel():
+            Up, Sp, Vtp = small_eigh.svd3_plain(M)
+            scale = Sp.amax(-1, keepdim=True).clamp_min(1e-30)
+            dots = [d for d in (cs._vec_agreement(U, Up, Sp), cs._vec_agreement(Vt.mT, Vtp.mT, Sp))
+                    if d is not None]
+            note("svd3", M.shape, float(((S - Sp).abs() / scale).max()), min(dots, default=None))
+        return U, S, Vt
+
+    routes = {
+        "the parent's calls (torch.linalg eigh, svd, svdvals, det), op by op": (
+            (small_eigh.eigh_plain, small_eigh.svd3_plain, torch.linalg.svdvals, torch.linalg.det),
+            True),
+        "torch.linalg, op by op": ((small_eigh.eigh_plain, small_eigh.svd3_plain) + kernel[2:],
+                                   True),
+        "K3 checked against torch.linalg, op by op": ((checked_eigh, checked_svd3) + kernel[2:],
+                                                      True),
+        "K3, captured step programs": (kernel, False),
+    }
+    frames, real, poses_gt, k = cs._loop_frames(torch.device("cuda"))
+    voc = vocabulary.load_default()
+    for route, (fns, eager) in routes.items():
+        agree.clear()
+        small_eigh.eigh, small_eigh.svd3, small_eigh.svdvals3, so3.det3x3 = fns
+        try:
+            key3, _, _ = cs.run_key3_course(eager=eager)
+            loop, _ = cs.run_loop(frames, real, poses_gt, k, voc, "bundled", eager=eager)
+        finally:
+            small_eigh.eigh, small_eigh.svd3, small_eigh.svdvals3, so3.det3x3 = kernel
+        print(json.dumps({
+            "route": route,
+            "key3": {n: key3[n] for n in ("tracked_equal", "keyframes_equal", "key_equal",
+                                          "n_inliers_max_diff", "rot_max_diff",
+                                          "trans_max_rel_diff")},
+            "loop": {n: loop[n] for n in ("tracked_real", "ate_m", "closures", "corrected",
+                                          "skipped_identity", "reverted", "reloc_attempts")},
+            # over both courses' calls
+            "k3_against_torch_linalg": {n: {**r, "n": sorted(r["n"])} for n, r in agree.items()},
+        }), flush=True)
+    print(json.dumps({"device": smi}), flush=True)
+    return 0
+
+
 def first_calls() -> dict:
     """First and second call, in a fresh process, of the library routines
     the loop closer adds: one-time start-up against steady cost (ms)."""
@@ -616,6 +725,8 @@ def main() -> int:
         return cg_dense_long(smi)
     if sys.argv[1:] == ["nccl"]:
         return nccl_cost(smi)
+    if sys.argv[1:] == ["k3ab"]:
+        return k3_ab(smi)
     if sys.argv[1:] == ["cli"]:
         return cli_run(smi)
     if sys.argv[1:2] == ["long"]:

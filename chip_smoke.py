@@ -1,14 +1,17 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase
+    python3 chip_smoke.py program    # device, build, k3 and program only
 
 Drives the port's main paths (`monocular_slam_tpu_torch`, no JAX) at the
-benchmark's full width and checks them:
+benchmark's full width and checks them. Every session runs its tracked
+frames through the captured step programs (`slam/session.py`: two CUDA
+graph replays a frame), except the program phase's op-by-op A/B run:
 
   1. device   — requires CUDA; prints the card's name and power limit;
-  2. build    — compiles K1 (`csrc/fast_score.cu`) and K2
-                (`csrc/hamming_top2.cu`) from the checkout, one nvcc each,
-                both started together;
+  2. build    — compiles K1 (`csrc/fast_score.cu`), K2
+                (`csrc/hamming_top2.cu`) and K3 (`csrc/small_eigh.cu`) from
+                the checkout, one nvcc each, all started together;
   3. draws    — the session's keyed RANSAC draws (`prng.uniform_on`, torch
                 int64 ops on the card) bit for bit against the numpy
                 `prng.uniform` / `random_bits` at the session's three shapes
@@ -38,8 +41,25 @@ benchmark's full width and checks them:
                 counts host syncs, then the measured run, whose window goes
                 through K2. Fails below 54/60 tracked, above 3 cm ATE, if
                 the two trajectories differ by more than 1e-6 m, below one
-                K1 launch per frame, or below 2 K2 launches in any tracked
-                frame;
+                K1 launch per frame, below 2 K2 launches in any tracked
+                frame, or below one K3 eigh and one svd3 launch per tracked
+                frame; each session calls `prewarm(image=True)` first;
+ 6a. k3       — K3 vs its plain version (`torch.linalg.eigh` / `svd`, also
+                the library call) at the step's shapes: eigh of (1000, 4,
+                4) and (1, 12, 12), svd3 of (1, 3, 3) and (512, 3, 3);
+                values within K3_TOL of the largest, vectors
+                |<v, v_plain>| >= 1 - K3_TOL where the gap exceeds K3_GAP of
+                the largest, U S Vt within K3_TOL; ms, device ms, bound;
+ 6b. program  — the session's course through the captured programs, with
+                host syncs over frames 10-59 (`set_sync_debug_mode` warnings
+                plus the flag reads plus lagged reads that waited), against
+                the same functions run op by op on the card: flags and
+                keyframes equal, poses within 1e-6 m, syncs <= 1 a frame;
+                fps of both, capture seconds and graph-pool memory of a
+                prewarmed session, a profile of one tracked frame's two
+                replays (K1 once, K2 at least twice, K3's two kernels; its
+                device operations) and the card's idle share over frames
+                13-22;
   7. k2       — K2 vs its plain version, equal exactly in d1, d2 and idx, on
                 1000x1000 real descriptors (frames 0 and 5 of the course),
                 2000x20000 and 2000x65536 random +-1, 97x123, an all-invalid
@@ -126,7 +146,8 @@ benchmark's full width and checks them:
                 edge; mean radius within 5% of 1); seconds of each.
 
 Every phase raises on failure. Kernel launch counts are set to 0 just
-before each path is driven and read just after (in `long`, after the
+before each path is driven and read just after (a replay adds the launches
+its capture recorded; a capture's warm-up run launches for real) (in `long`, after the
 prewarm; in `cli`, the CLI subprocess counts its main loop); the kernels
 JSON reports the session's measured run under `launches` and the CLI's
 under `launches_cli`. The second-to-last line is
@@ -146,6 +167,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -167,7 +189,19 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 INT8_OPS_PER_S = 1979e12
 K1_OPS_PER_PX = 160  # 16 ring differences, the two circular min-9 passes, NMS
-TRAJ_TOL_M = 1e-6  # dense-window vs K2-window session trajectories
+TRAJ_TOL_M = 1e-6  # dense-window vs K2-window, and graph vs eager, session trajectories
+# the fewest launches of each kernel that one tracked step of an image
+# session makes (extraction; the tracker's window and its cross-check;
+# triangulation and the PnP refit; the PnP scale and `project_to_so3`)
+STEP_MIN_LAUNCHES = {"corner_maps": 1, "hamming_top2": 2, "small_eigh": 1, "svd3": 1}
+K3_SOURCE = "monocular_slam_tpu_torch/csrc/small_eigh.cu"
+# K3 has no Pallas counterpart: it takes the place of XLA's eigh / svd inside
+# the reference's step (`jnp.linalg.eigh` in triangulation and the PnP
+# refit, `jnp.linalg.svd` in the SO(3) projection)
+K3_REPLACES = "monocular_slam_tpu/geometry/triangulate.py:58"
+K3_SVD_REPLACES = "monocular_slam_tpu/geometry/so3.py:179"
+K3_TOL = 1e-5  # values relative to the largest; 1 - |<v, v_plain>|; SVD residual
+K3_GAP = 1e-3  # eigenvectors compared where the eigengap exceeds this of the largest
 LOOP_FRAMES = 112
 BLACKOUT_AFTER = 40
 BLACKOUT = 8
@@ -278,25 +312,66 @@ def phase_device() -> str:
 
 
 def phase_build():
-    from monocular_slam_tpu_torch.ops import fast_score, hamming
+    from monocular_slam_tpu_torch.ops import fast_score, hamming, small_eigh
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:  # one nvcc per source, started together
-        for f in [ex.submit(fast_score.load), ex.submit(hamming.load)]:
+    mods = (("K1", fast_score), ("K2", hamming), ("K3", small_eigh))
+    with ThreadPoolExecutor(len(mods)) as ex:  # one nvcc per source, started together
+        for f in [ex.submit(mod.load) for _, mod in mods]:
             f.result()
-    log(f"[build] K1 and K2 built and loaded in {time.perf_counter() - t0:.2f} s")
-    for name, mod in (("K1", fast_score), ("K2", hamming)):
+    log(f"[build] K1, K2 and K3 built and loaded in {time.perf_counter() - t0:.2f} s")
+    for name, mod in mods:
         log(f"[build] {name} {mod.BUILD_INFO['path']} "
             f"(nvcc {mod.BUILD_INFO.get('seconds', 0.0):.2f} s)")
         for line in mod.BUILD_INFO.get("log", "").splitlines():
             log(f"[build]   {line}")
 
 
-def phase_draws() -> dict:
-    from monocular_slam_tpu_torch.geometry import epipolar
-    from monocular_slam_tpu_torch.ops import fast_score, hamming
+def run_key3_course(eager: bool = False):
+    """The port's session over the committed key-3 fixture's frames (the
+    reference's course and seed) on the card, through the captured step
+    programs unless `eager`, against the fixture's run: (tracked flags,
+    keyframes, session key, inlier counts and poses compared; each frame's
+    translation difference; each reference translation's length)."""
+    from monocular_slam_tpu_torch.ops import launches
     from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
     from monocular_slam_tpu_torch.slam.session import SlamSession
+
+    dev = "cuda"
+    with np.load(REF_FIXTURE) as f:
+        fx = {n: f[n] for n in f.files}
+    W, H = (int(v) for v in fx["image_wh"])
+    cfg = SlamConfig(max_frames=int(fx["max_frames"]), max_points=int(fx["max_points"]),
+                     image_wh=(W, H), frontend=FrontendConfig(n_features=int(fx["n_features"])))
+    frames = torch.as_tensor(fx["frames"], device=dev).to(torch.float32)
+    sess = SlamSession(cfg, seed=int(fx["seed"]), run_ba=True, device=dev)
+    sess._use_graphs = not eager
+    sess.prewarm(image=True)
+    launches.reset()
+    for i in range(frames.shape[0]):
+        sess.add_frame(frames[i], fx["k"], i / 30.0)
+    poses, valid, _ = sess.trajectory()
+    counted = launches.read()
+    ref = fx["poses"]
+    tracked = np.array([s.tracked for s in sess.stats])
+    n_inl = np.array([s.n_inliers for s in sess.stats])
+    rot = float(np.abs(poses[:, :, :3] - ref[:, :, :3]).max())
+    dt = np.linalg.norm(poses[:, :, 3] - ref[:, :, 3], axis=-1)
+    t_len = np.linalg.norm(ref[:, :, 3], axis=-1)
+    return {
+        "tracked": int(tracked.sum()), "frames": int(len(tracked)),
+        "tracked_equal": bool(np.array_equal(tracked, fx["tracked"])),
+        "keyframes": sess.keyframes, "keyframes_equal": sess.keyframes == fx["keyframes"].tolist(),
+        "key_equal": bool(np.array_equal(sess.key, fx["key"])),
+        "n_inliers_max_diff": int(np.abs(n_inl - fx["n_inliers"]).max()),
+        "rot_max_diff": rot, "trans_max_diff": float(dt.max()),
+        "trans_max_rel_diff": float((dt / np.maximum(t_len, 1e-9)).max()),
+        "k1_launches": counted["corner_maps"], "k2_launches": counted["hamming_top2"],
+    }, dt, t_len
+
+
+def phase_draws() -> dict:
+    from monocular_slam_tpu_torch.geometry import epipolar
     from monocular_slam_tpu_torch.utils import prng
 
     dev = "cuda"
@@ -324,34 +399,9 @@ def phase_draws() -> dict:
         }
     log("[draws] event-timed ms per call: " + json.dumps(cost))
 
-    with np.load(REF_FIXTURE) as f:
-        fx = {n: f[n] for n in f.files}
-    W, H = (int(v) for v in fx["image_wh"])
-    cfg = SlamConfig(max_frames=int(fx["max_frames"]), max_points=int(fx["max_points"]),
-                     image_wh=(W, H), frontend=FrontendConfig(n_features=int(fx["n_features"])))
-    frames = torch.as_tensor(fx["frames"], device=dev).to(torch.float32)
-    sess = SlamSession(cfg, seed=int(fx["seed"]), run_ba=True, device=dev)
-    fast_score.LAUNCHES = hamming.LAUNCHES = 0
-    for i in range(frames.shape[0]):
-        sess.add_frame(frames[i], fx["k"], i / 30.0)
-    poses, valid, _ = sess.trajectory()
-    k1, k2 = fast_score.LAUNCHES, hamming.LAUNCHES
-    ref = fx["poses"]
-    tracked = np.array([s.tracked for s in sess.stats])
-    n_inl = np.array([s.n_inliers for s in sess.stats])
-    rot = float(np.abs(poses[:, :, :3] - ref[:, :, :3]).max())
-    dt = np.linalg.norm(poses[:, :, 3] - ref[:, :, 3], axis=-1)
-    t_len = np.linalg.norm(ref[:, :, 3], axis=-1)
-    out = {
-        "tracked": int(tracked.sum()), "frames": int(len(tracked)),
-        "tracked_equal": bool(np.array_equal(tracked, fx["tracked"])),
-        "keyframes": sess.keyframes, "keyframes_equal": sess.keyframes == fx["keyframes"].tolist(),
-        "key_equal": bool(np.array_equal(sess.key, fx["key"])),
-        "n_inliers_max_diff": int(np.abs(n_inl - fx["n_inliers"]).max()),
-        "rot_max_diff": rot, "trans_max_diff": float(dt.max()),
-        "trans_max_rel_diff": float((dt / np.maximum(t_len, 1e-9)).max()),
-        "k1_launches": k1, "k2_launches": k2, "draw_ms": cost,
-    }
+    out, dt, t_len = run_key3_course()
+    out["draw_ms"] = cost
+    rot, k1, k2 = out["rot_max_diff"], out["k1_launches"], out["k2_launches"]
     log("[draws] reference course on the card: " + json.dumps(out))
     if not (out["tracked_equal"] and out["keyframes_equal"] and out["key_equal"]):
         raise AssertionError("draws: the card's session left the reference's run (tracked flags, "
@@ -361,7 +411,7 @@ def phase_draws() -> dict:
     if not (dt <= REF_TRANS_TOL[0] * t_len + REF_TRANS_TOL[1]).all():
         raise AssertionError(f"draws: translations {dt.tolist()} apart, beyond "
                              f"{REF_TRANS_TOL[0]} x {t_len.tolist()} + {REF_TRANS_TOL[1]}")
-    if k1 < frames.shape[0] or k2 < 2:
+    if k1 != out["frames"] or k2 < 2:
         raise AssertionError(f"draws: K1 launched {k1} times, K2 {k2}")
     return out
 
@@ -382,7 +432,7 @@ def _k1_check(name, img, nms_k, raw_k, nms_p, raw_p) -> float:
 def phase_k1(frame: torch.Tensor) -> dict:
     """K1 vs plain: all 8 pyramid levels of `frame` in one launch, and the
     one-level call on 101x173."""
-    from monocular_slam_tpu_torch.ops import fast_score, pyramid
+    from monocular_slam_tpu_torch.ops import fast_score, launches, pyramid
 
     levels = [x.contiguous() for x in pyramid.build_pyramid(frame.contiguous())]
     g = torch.Generator(device=frame.device).manual_seed(9)
@@ -390,10 +440,10 @@ def phase_k1(frame: torch.Tensor) -> dict:
     odd[20:40, 30:50] += 120.0
     odd[60:63, 100:140] += 90.0
 
-    before = fast_score.LAUNCHES
+    before = launches.count("corner_maps")
     maps_k = fast_score.corner_maps_levels(levels, 20.0)
     torch.cuda.synchronize()
-    if fast_score.LAUNCHES != before + 1:
+    if launches.count("corner_maps") != before + 1:
         raise AssertionError("K1: all levels did not go in one launch")
     maps_p = fast_score.corner_maps_levels_plain(levels, 20.0)
     worst = 0.0
@@ -442,13 +492,21 @@ def phase_extract(frame: torch.Tensor) -> None:
 
 
 def run_session(imgs, poses_gt, k, count_syncs: bool, loop_closer: bool = False,
-                dense_window: bool = False):
-    """One session over `imgs`. `dense_window` forces the tracker's window
-    onto the dense route; every `tracker.track` call's K2 launches are
-    recorded."""
+                dense_window: bool = False, eager: bool = False):
+    """One session over `imgs`, through the captured step programs unless
+    `eager` (the same functions op by op on the card). `dense_window`
+    forces the tracker's window onto the dense route. The kernels' counts
+    are set to 0 after `prewarm` and read after the last frame
+    (`launches`), and each tracked step's are read from the counts the card
+    kept around it (`SlamSession.step_launches`; `step_min` is the fewest of
+    each kernel in any step). With
+    `count_syncs`, frames 10-59 run under `set_sync_debug_mode("warn")`:
+    host syncs are its warnings plus the session's reads of the mapping
+    block's flags and the lagged outcome reads that waited on the card."""
     from monocular_slam_tpu_torch.eval import ate as ate_mod
-    from monocular_slam_tpu_torch.ops import hamming
+    from monocular_slam_tpu_torch.ops import launches
     from monocular_slam_tpu_torch.retrieval import vocabulary
+    from monocular_slam_tpu_torch.slam import session as session_mod
     from monocular_slam_tpu_torch.slam import tracker
     from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
     from monocular_slam_tpu_torch.slam.loop_closer import LoopCloser
@@ -458,44 +516,54 @@ def run_session(imgs, poses_gt, k, count_syncs: bool, loop_closer: bool = False,
                      frontend=FrontendConfig(n_features=1000))
     lc = LoopCloser(vocabulary.load_default(), cfg) if loop_closer else None
     sess = SlamSession(cfg, seed=1, run_ba=True, loop_closer=lc, device="cuda")
+    sess._use_graphs = not eager
+
+    def record_sync(message, category, filename, lineno, file=None, line=None):
+        """A sync warning, attributed to the innermost frame of the port or
+        of this script on the stack."""
+        nonlocal syncs
+        if "synchroniz" not in str(message):
+            return
+        syncs += 1
+        src = f"{filename}:{lineno}"
+        for fr in reversed(traceback.extract_stack()[:-1]):
+            if "monocular_slam_tpu_torch" in fr.filename or fr.filename.endswith("chip_smoke.py"):
+                src = f"{fr.filename.split('/')[-1]}:{fr.lineno}"
+                break
+        sync_src[src] = sync_src.get(src, 0) + 1
+
     skip = 10
     syncs = 0
     sync_src: dict[str, int] = {}
     t_tail = 0.0
-    plain_track, plain_window = tracker.track, tracker._window_matches
-    track_k2 = []  # K2 launches inside each tracker.track call
-
-    def counted_track(*a, **kw):
-        before = hamming.LAUNCHES
-        res = plain_track(*a, **kw)
-        track_k2.append(hamming.LAUNCHES - before)
-        return res
-
-    tracker.track = counted_track
-    if dense_window:
+    plain_window = tracker._window_matches
+    if dense_window:  # before the captures, which record the route
         tracker._window_matches = functools.partial(plain_window, use_kernel=False)
     try:
+        sess.prewarm(image=True)  # builds, and on the graph route the captures, before frame 0
+        launches.reset()
         for i in range(len(imgs)):
             if i == skip:
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
+                flags0, waits0 = sess.flag_reads, session_mod.FrameStats.waits
             if count_syncs and i >= skip:
-                with warnings.catch_warnings(record=True) as w:
+                with warnings.catch_warnings():
                     warnings.simplefilter("always")
+                    warnings.showwarning = record_sync
                     torch.cuda.set_sync_debug_mode("warn")
                     sess.add_frame(imgs[i], k, i / 30.0)
                     torch.cuda.set_sync_debug_mode("default")
-                for x in w:
-                    if "synchroniz" in str(x.message):
-                        syncs += 1
-                        src = f"{x.filename.split('monocular_slam_tpu_torch/')[-1]}:{x.lineno}"
-                        sync_src[src] = sync_src.get(src, 0) + 1
             else:
                 sess.add_frame(imgs[i], k, i / 30.0)
+        flag_reads = sess.flag_reads - flags0
+        waits = session_mod.FrameStats.waits - waits0
         torch.cuda.synchronize()
         t_tail = time.perf_counter() - t0
+        counted = launches.read()
     finally:
-        tracker.track, tracker._window_matches = plain_track, plain_window
+        tracker._window_matches = plain_window
+    steps = sess.step_launches
     poses, valid, _ = sess.trajectory()
     if not np.isfinite(poses[valid]).all():
         raise AssertionError("non-finite poses")
@@ -504,21 +572,26 @@ def run_session(imgs, poses_gt, k, count_syncs: bool, loop_closer: bool = False,
         "closures": len(lc.closures), "reloc_attempts": sess.reloc_attempts,
         "culled_keyframes": len(sess._kf_culled),
     }
+    n_tail = len(imgs) - skip
     return out | {
         "tracked": int(valid.sum()), "ate_m": r.rmse,
-        "fps_10_59": (len(imgs) - skip) / t_tail,
-        "syncs_per_frame": syncs / (len(imgs) - skip) if count_syncs else None,
+        "fps_10_59": n_tail / t_tail,
+        "syncs_per_frame": (syncs + flag_reads + waits) / n_tail if count_syncs else None,
+        "debug_mode_syncs_per_frame": syncs / n_tail if count_syncs else None,
+        "flag_reads_per_frame": flag_reads / n_tail, "lagged_waits_per_frame": waits / n_tail,
         "sync_sources": dict(sorted(sync_src.items(), key=lambda kv: -kv[1])[:10]),
         "n_map_points": sess.n_map_points,
-        "keyframes": len(sess.keyframes),
-        "track_calls": len(track_k2), "k2_per_track_min": min(track_k2, default=0),
+        "keyframes": sess.keyframes,
+        "launches": counted, "track_calls": len(steps),
+        "step_min": {n: min((c[n] for c in steps), default=0) for n in launches.KERNELS},
+        "capture_s": sum(sess.capture_s.values()), "programs": len(sess.capture_s),
         "poses": poses, "valid": valid,
+        "tracked_flags": [bool(s.tracked) for s in sess.stats],
     }
 
 
 def phase_session() -> dict:
     from monocular_slam_tpu_torch.datasets import render
-    from monocular_slam_tpu_torch.ops import fast_score, hamming
 
     t0 = time.perf_counter()
     imgs, poses_gt, k = render.render_sequence(seed=11, n_frames=N_FRAMES, wh=WH, device="cuda")
@@ -531,16 +604,20 @@ def phase_session() -> dict:
     warm = run_session(imgs, poses_gt, k, count_syncs=True, dense_window=True)
     log(f"[session] warm-up run (dense window route): tracked {warm['tracked']}/{N_FRAMES}, "
         f"ATE {warm['ate_m'] * 100:.3f} cm, host syncs/frame (frames 10-59) "
-        f"{warm['syncs_per_frame']:.2f}, K2 launches per track call {warm['k2_per_track_min']}")
+        f"{warm['syncs_per_frame']:.2f}, fewest launches in a tracked step {warm['step_min']}")
     log("[session] host syncs by source over frames 10-59: " + json.dumps(warm["sync_sources"]))
 
-    fast_score.LAUNCHES = hamming.LAUNCHES = 0
     out = run_session(imgs, poses_gt, k, count_syncs=False)
-    k1_launches, k2_launches = fast_score.LAUNCHES, hamming.LAUNCHES
+    counted, step_min = out["launches"], out["step_min"]
+    k1_launches, k2_launches = counted["corner_maps"], counted["hamming_top2"]
+    k3_launches, k3_svd_launches = counted["small_eigh"], counted["svd3"]
+    valid = out["valid"]
     same_valid = bool((out["valid"] == warm["valid"]).all())
     v = out["valid"] & warm["valid"]
     traj_diff = float(np.abs(out["poses"][v] - warm["poses"][v]).max()) if v.any() else float("inf")
     poses = out.pop("poses")
+    keyframes, tracked_flags = out["keyframes"], out.pop("tracked_flags")
+    out["keyframes"] = len(keyframes)
     del out["valid"], warm["poses"], warm["valid"], out["sync_sources"]
     out["syncs_per_frame"] = warm["syncs_per_frame"]
     out["fps_10_59_dense_window"] = warm["fps_10_59"]
@@ -549,8 +626,9 @@ def phase_session() -> dict:
     log("[session] " + json.dumps(out))
     log(f"[session] tracked {out['tracked']}/{N_FRAMES}, ATE {out['ate_m'] * 100:.3f} cm, "
         f"{out['fps_10_59']:.2f} fps over frames 10-59 (dense window {warm['fps_10_59']:.2f}), "
-        f"K1 launches {k1_launches}, K2 launches {k2_launches} in {out['track_calls']} track "
-        f"calls (at least {out['k2_per_track_min']} each), max |pose - dense-window pose| "
+        f"K1 launches {k1_launches}, K2 launches {k2_launches} in {out['track_calls']} tracked "
+        f"steps (at least {step_min['hamming_top2']} each), K3 {k3_launches} eigh and "
+        f"{k3_svd_launches} svd3 launches, max |pose - dense-window pose| "
         f"{traj_diff:.3g}")
     if out["tracked"] < MIN_TRACKED:
         raise AssertionError(f"tracked {out['tracked']} < {MIN_TRACKED}")
@@ -559,13 +637,223 @@ def phase_session() -> dict:
     if not same_valid or not traj_diff <= TRAJ_TOL_M:
         raise AssertionError(f"K2 window run differs from the dense-window run: valid equal "
                              f"{same_valid}, max pose difference {traj_diff}")
-    if k1_launches < N_FRAMES:
-        raise AssertionError(f"K1 launched {k1_launches} times, < 1 per frame")
-    if out["track_calls"] < MIN_TRACKED - 2 or out["k2_per_track_min"] < 2:
-        raise AssertionError(f"K2: {out['track_calls']} track calls, at least "
-                             f"{out['k2_per_track_min']} launches each (want >= 2)")
+    if k1_launches != N_FRAMES:
+        raise AssertionError(f"K1 launched {k1_launches} times for {N_FRAMES} frames")
+    if out["track_calls"] < MIN_TRACKED - 2 or any(step_min[n] < STEP_MIN_LAUNCHES[n]
+                                                  for n in STEP_MIN_LAUNCHES):
+        raise AssertionError(f"{out['track_calls']} tracked steps, fewest launches in one "
+                             f"{step_min} (want at least {STEP_MIN_LAUNCHES})")
     return {"k1": phase_k1_out, "k1_launches": k1_launches, "k2_launches": k2_launches,
-            "imgs": imgs, "poses_gt": poses_gt, "k": k, "ate_m": out["ate_m"], "poses": poses}
+            "imgs": imgs, "poses_gt": poses_gt, "k": k, "ate_m": out["ate_m"], "poses": poses,
+            "valid": valid, "keyframes": keyframes, "tracked_flags": tracked_flags,
+            "fps_10_59": out["fps_10_59"], "k3_launches": k3_launches,
+            "k3_svd_launches": k3_svd_launches}
+
+
+def _k3_inputs(dev):
+    """K3's inputs at the step's shapes, from a seeded numpy generator: the
+    (1000, 4, 4) triangulation normal matrices (Gram matrices of four
+    row-normalised DLT rows), a (1, 12, 12) PnP refit normal matrix (the
+    weighted DLT rows of 150 points at depths 2-8, ill-conditioned as the
+    tracker's), and the (1, 3, 3) and (512, 3, 3) rotation blocks that
+    `project_to_so3` and the PnP scale take apart (scaled rotations plus
+    noise)."""
+    rng = np.random.default_rng(7)
+    A = rng.normal(size=(1000, 4, 4))
+    A /= np.linalg.norm(A, axis=-1, keepdims=True)
+    tri = np.einsum("nri,nrj->nij", A, A)
+    X = np.concatenate([rng.uniform(-2, 2, (150, 2)), rng.uniform(2, 8, (150, 1))], axis=1)
+    xy = X[:, :2] / X[:, 2:] + rng.normal(scale=1e-3, size=(150, 2))
+    Xh = np.concatenate([X, np.ones((150, 1))], axis=1)
+    z = np.zeros_like(Xh)
+    rows = np.concatenate([np.concatenate([Xh, z, -xy[:, :1] * Xh], 1),
+                           np.concatenate([z, Xh, -xy[:, 1:] * Xh], 1)])
+    pnp = (rows.T @ rows)[None]
+
+    def rot(n):
+        w = rng.normal(scale=0.5, size=(n, 3))
+        th = np.linalg.norm(w, axis=1)[:, None, None]
+        W = np.zeros((n, 3, 3))
+        W[:, 0, 1], W[:, 0, 2], W[:, 1, 2] = -w[:, 2], w[:, 1], -w[:, 0]
+        W = W - W.transpose(0, 2, 1)
+        R = np.eye(3) + np.sin(th) / th * W + (1 - np.cos(th)) / th**2 * W @ W
+        return R * rng.uniform(0.5, 3.0, (n, 1, 1)) + rng.normal(scale=1e-2, size=(n, 3, 3))
+
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa: E731
+    return {"eigh (1000, 4, 4)": f32(tri), "eigh (1, 12, 12)": f32(pnp),
+            "svd3 (1, 3, 3)": f32(rot(1)), "svd3 (512, 3, 3)": f32(rot(512))}
+
+
+def _vec_agreement(V, Vp, w):
+    """min |<v, v_plain>| over the eigenvectors whose eigengap exceeds
+    K3_GAP of the largest |eigenvalue| (None if no vector qualifies)."""
+    w = w.double()
+    scale = w.abs().amax(-1, keepdim=True)
+    gap = torch.full_like(w, float("inf"))
+    d = (w[..., 1:] - w[..., :-1]).abs()
+    gap[..., 1:] = torch.minimum(gap[..., 1:], d)
+    gap[..., :-1] = torch.minimum(gap[..., :-1], d)
+    dots = (V.double() * Vp.double()).sum(-2).abs()
+    sel = gap > K3_GAP * scale
+    return float(dots[sel].min()) if bool(sel.any()) else None
+
+
+def phase_k3() -> dict:
+    """K3 against its plain version (`torch.linalg.eigh` / `svd`, which is
+    also the library call) at the step's shapes: eigenvalues (singular
+    values) within K3_TOL of the largest, eigenvectors (singular vectors)
+    with |<v, v_plain>| >= 1 - K3_TOL where the gap is clear, each SVD
+    reproducing its matrix; event-timed ms per call, profiler device ms,
+    and the bound."""
+    from monocular_slam_tpu_torch.ops import small_eigh
+
+    dev = "cuda"
+    out = {}
+    for name, x in _k3_inputs(dev).items():
+        n, batch = x.shape[-1], x.numel() // (x.shape[-1] ** 2)
+        if name.startswith("eigh"):
+            w, V = small_eigh.eigh(x)
+            wp, Vp = small_eigh.eigh_plain(x)
+            torch.cuda.synchronize()
+            val_err = float(((w - wp).abs() / wp.abs().amax(-1, keepdim=True)).max())
+            vec = _vec_agreement(V, Vp, wp)
+            fn, plain = (lambda x=x: small_eigh.eigh(x)), (lambda x=x: small_eigh.eigh_plain(x))
+            kernel = "small_eigh_kernel"
+            nbytes = batch * (2 * n * n + n) * 4
+            ops = batch * 9 * n ** 3  # a dense symmetric eigensolver's ~9 n^3 flops
+            recon = None
+        else:
+            U, S, Vt = small_eigh.svd3(x)
+            Up, Sp, Vtp = small_eigh.svd3_plain(x)
+            torch.cuda.synchronize()
+            val_err = float(((S - Sp).abs() / Sp.amax(-1, keepdim=True)).max())
+            vec = min(v for v in (_vec_agreement(U, Up, Sp), _vec_agreement(Vt.mT, Vtp.mT, Sp))
+                      if v is not None)
+            recon = float(((U * S[..., None, :]) @ Vt - x).abs().max() / x.abs().max())
+            fn, plain = (lambda x=x: small_eigh.svd3(x)), (lambda x=x: small_eigh.svd3_plain(x))
+            kernel = "svd3_kernel"
+            nbytes = batch * (9 + 9 + 3 + 9) * 4  # M read; U, S, Vt written
+            ops = batch * 21 * 27  # Golub-Van Loan's ~21 n^3 flops of a full SVD
+        ms = time_ms_inference(fn)
+        plain_ms = time_ms_inference(plain)
+        row = {
+            "max_value_rel_err": val_err, "min_vector_dot": vec, "svd_rel_residual": recon,
+            "max_abs_err": val_err, "ms": ms, "device_ms": device_ms(fn, kernel),
+            "plain_ms": plain_ms, "library_ms": plain_ms,
+            "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3,
+            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S
+            else "operations",
+        }
+        out[name] = row
+        log(f"[k3] {name}: " + json.dumps(row))
+        if not val_err <= K3_TOL:
+            raise AssertionError(f"K3 {name}: values {val_err} apart (relative) > {K3_TOL}")
+        if vec is None or not vec >= 1 - K3_TOL:
+            raise AssertionError(f"K3 {name}: vectors |<v, v_plain>| {vec} < 1 - {K3_TOL}")
+        if recon is not None and not recon <= K3_TOL:
+            raise AssertionError(f"K3 {name}: U S Vt misses its matrix by {recon}")
+    return out
+
+
+def phase_program(sess_out) -> dict:
+    """The step program on the card: the 60-frame course through the
+    captured programs (with host syncs counted over frames 10-59) against
+    the same functions run op by op on the card (`_use_graphs` cleared):
+    equal tracked flags and keyframes, poses within TRAJ_TOL_M; fps of
+    both; the programs' capture seconds and graph-pool memory; a profile
+    of one tracked frame's two replays (kernels by name: K1 once, K2 at
+    least twice, K3)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
+    from monocular_slam_tpu_torch.slam.session import SlamSession
+
+    imgs, poses_gt, k = sess_out["imgs"], sess_out["poses_gt"], sess_out["k"]
+    graph_run = run_session(imgs, poses_gt, k, count_syncs=True)
+    eager_run = run_session(imgs, poses_gt, k, count_syncs=True, eager=True)
+    same_flags = graph_run["tracked_flags"] == eager_run["tracked_flags"]
+    same_kf = graph_run["keyframes"] == eager_run["keyframes"]
+    v = graph_run["valid"] & eager_run["valid"]
+    diff = float(np.abs(graph_run["poses"][v] - eager_run["poses"][v]).max())
+
+    # captures and pool memory, then one tracked frame's replays profiled
+    cfg = SlamConfig(max_frames=64, max_points=20000, image_wh=WH,
+                     frontend=FrontendConfig(n_features=1000))
+    sess = SlamSession(cfg, seed=1, run_ba=True, device="cuda")
+    prewarm_s = sess.prewarm(image=True)
+    pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                     if tuple(seg.get("segment_pool_id", ())) == tuple(sess._pool))
+
+    def device_ops(prof):
+        """(device operations, their device ms, counts of the kernels by name)."""
+        names, n, us = {}, 0, 0.0
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue  # host events (their device time is their children's)
+            n += e.count
+            us += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+            for tag in ("corner_maps_levels_kernel", "hamming_top2_kernel", "small_eigh_kernel",
+                        "svd3_kernel"):
+                if tag in e.key:
+                    names[tag] = names.get(tag, 0) + e.count
+        return n, us / 1e3, names
+
+    for i in range(12):
+        sess.add_frame(imgs[i], k, i / 30.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sess.add_frame(imgs[12], k, 12 / 30.0)
+        torch.cuda.synchronize()
+    n_kernels, frame_ms, names = device_ops(prof)
+    # the card's idle share over ten steady frames: 1 - device busy / wall
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(13, 23):
+            sess.add_frame(imgs[i], k, i / 30.0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    _, busy_ms, _ = device_ops(prof)
+    out = {
+        "graph": {n: graph_run[n] for n in ("tracked", "ate_m", "fps_10_59", "syncs_per_frame",
+                                            "debug_mode_syncs_per_frame", "flag_reads_per_frame",
+                                            "lagged_waits_per_frame", "sync_sources", "capture_s",
+                                            "programs")},
+        "eager": {n: eager_run[n] for n in ("tracked", "ate_m", "fps_10_59", "syncs_per_frame",
+                                            "sync_sources")},
+        "tracked_equal": same_flags, "keyframes_equal": same_kf, "max_pose_diff_m": diff,
+        "prewarm_s": prewarm_s, "capture_s": {"/".join(str(p) for p in key[:3]): s
+                                              for key, s in sess.capture_s.items()},
+        "graph_pool_bytes": pool_bytes,
+        "replay_kernels": n_kernels, "replay_device_ms": frame_ms,
+        "replay_kernels_by_name": names, "idle_share_frames_13_22": 1.0 - busy_ms / wall_ms,
+        "device_ms_per_frame_13_22": busy_ms / 10, "wall_ms_per_frame_13_22": wall_ms / 10,
+        # the profiler slows the host: the same device time over the unprofiled
+        # run's wall time per frame (frames 10-59)
+        "idle_share_unprofiled": 1.0 - (busy_ms / 10) * graph_run["fps_10_59"] / 1e3,
+    }
+    log("[program] " + json.dumps(out))
+    log(f"[program] graph route: {graph_run['tracked']}/{N_FRAMES} tracked, ATE "
+        f"{graph_run['ate_m'] * 100:.3f} cm, {graph_run['fps_10_59']:.2f} fps, "
+        f"{graph_run['syncs_per_frame']:.2f} host syncs per frame; eager route on the card: "
+        f"{eager_run['fps_10_59']:.2f} fps, {eager_run['syncs_per_frame']:.2f} host syncs per "
+        f"frame; max |pose_graph - pose_eager| {diff:.3g} m; "
+        f"{n_kernels} device operations ({frame_ms:.2f} ms) in one tracked frame's two "
+        f"replays; the card idle {100 * out['idle_share_frames_13_22']:.1f}% over frames 13-22 "
+        f"(profiled), {100 * out['idle_share_unprofiled']:.1f}% against the unprofiled wall")
+    fails = []
+    if graph_run["tracked"] < MIN_TRACKED or not graph_run["ate_m"] <= MAX_ATE_M:
+        fails.append(f"tracked {graph_run['tracked']}, ATE {graph_run['ate_m']}")
+    if not (same_flags and same_kf and diff <= TRAJ_TOL_M):
+        fails.append(f"graph vs eager: flags equal {same_flags}, keyframes equal {same_kf}, "
+                     f"max pose difference {diff}")
+    if not graph_run["syncs_per_frame"] <= 1.0:
+        fails.append(f"{graph_run['syncs_per_frame']} host syncs per frame > 1")
+    if (names.get("corner_maps_levels_kernel", 0) < 1 or names.get("hamming_top2_kernel", 0) < 2
+            or names.get("small_eigh_kernel", 0) < 1 or names.get("svd3_kernel", 0) < 1):
+        fails.append(f"the profiled replays ran {names}")
+    if fails:
+        raise AssertionError("program: " + "; ".join(fails))
+    return out
 
 
 WINDOW = "window 5x1000x1000, frame 6 vs frames 5..1"
@@ -673,21 +961,23 @@ def phase_k2(imgs) -> dict:
 def phase_lc60(sess_out) -> dict:
     """The bench's second configuration: the same course with the loop
     closer attached; K2 counted from 0 over the run."""
-    from monocular_slam_tpu_torch.ops import fast_score, hamming
-
-    fast_score.LAUNCHES = hamming.LAUNCHES = 0
     out = run_session(sess_out["imgs"], sess_out["poses_gt"], sess_out["k"], count_syncs=False,
                       loop_closer=True)
-    out["k1_launches"], out["k2_launches"] = fast_score.LAUNCHES, hamming.LAUNCHES
-    del out["sync_sources"], out["poses"], out["valid"]
+    out["k1_launches"], out["k2_launches"] = (out["launches"]["corner_maps"],
+                                              out["launches"]["hamming_top2"])
+    del out["sync_sources"], out["poses"], out["valid"], out["tracked_flags"]
+    out["keyframes"] = len(out["keyframes"])
     log("[lc60] " + json.dumps(out))
     log(f"[lc60] tracked {out['tracked']}/{N_FRAMES}, ATE {out['ate_m'] * 100:.3f} cm "
         f"(without the closer {sess_out['ate_m'] * 100:.3f} cm), {out['fps_10_59']:.2f} fps over "
         f"frames 10-59, closures {out['closures']}, relocalization attempts {out['reloc_attempts']}")
     if out["tracked"] < MIN_TRACKED or not out["ate_m"] <= MAX_ATE_M:
         raise AssertionError(f"lc60: tracked {out['tracked']}, ATE {out['ate_m']}")
-    if out["k1_launches"] < N_FRAMES:
-        raise AssertionError(f"lc60: K1 launched {out['k1_launches']} times, < 1 per frame")
+    if out["k1_launches"] != N_FRAMES:
+        raise AssertionError(f"lc60: K1 launched {out['k1_launches']} times for {N_FRAMES} "
+                             f"frames")
+    if any(out["step_min"][n] < STEP_MIN_LAUNCHES[n] for n in STEP_MIN_LAUNCHES):
+        raise AssertionError(f"lc60: fewest launches in a tracked step {out['step_min']}")
     if out["closures"] == 0 and out["reloc_attempts"] == 0:
         if abs(out["ate_m"] - sess_out["ate_m"]) > 1e-4:
             raise AssertionError(f"lc60: nothing fired but ATE {out['ate_m']} != {sess_out['ate_m']}")
@@ -709,9 +999,9 @@ def _loop_frames(dev):
     return frames, real, poses_gt, k
 
 
-def run_loop(frames, real, poses_gt, k, voc, label: str) -> dict:
+def run_loop(frames, real, poses_gt, k, voc, label: str, eager: bool = False) -> dict:
     from monocular_slam_tpu_torch.eval import ate as ate_mod
-    from monocular_slam_tpu_torch.ops import fast_score, hamming
+    from monocular_slam_tpu_torch.ops import launches
     from monocular_slam_tpu_torch.slam import tracker
     from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
     from monocular_slam_tpu_torch.slam.loop_closer import LoopCloser
@@ -722,17 +1012,19 @@ def run_loop(frames, real, poses_gt, k, voc, label: str) -> dict:
                      frontend=FrontendConfig(n_features=1000))
     lc = LoopCloser(voc, cfg, device=dev)
     sess = SlamSession(cfg, seed=1, run_ba=True, loop_closer=lc, device=dev)
+    sess._use_graphs = not eager  # the same functions op by op with `eager`
     reloc_k2 = []  # K2 launches inside each relocalization attempt
     plain_reloc = tracker.relocalize
 
     def counted_reloc(*a, **kw):
-        before = hamming.LAUNCHES
+        before = launches.count("hamming_top2")
         res = plain_reloc(*a, **kw)
-        reloc_k2.append(hamming.LAUNCHES - before)
+        reloc_k2.append(launches.count("hamming_top2") - before)
         return res
 
+    sess.prewarm(image=True)
     tracker.relocalize = counted_reloc
-    fast_score.LAUNCHES = hamming.LAUNCHES = 0
+    launches.reset()
     try:
         _sync(dev)
         t0 = time.perf_counter()
@@ -743,7 +1035,8 @@ def run_loop(frames, real, poses_gt, k, voc, label: str) -> dict:
         wall = time.perf_counter() - t0
     finally:
         tracker.relocalize = plain_reloc
-    launches, k1_launches = hamming.LAUNCHES, fast_score.LAUNCHES
+    counted = launches.read()
+    steps = sess.step_launches
     poses, valid, _ = sess.trajectory()
     rv = valid[real]
     r = ate_mod.ate(poses[real][rv], poses_gt[rv])
@@ -755,7 +1048,9 @@ def run_loop(frames, real, poses_gt, k, voc, label: str) -> dict:
         "reverted": lc.reverted, "culled_keyframes": sorted(sess._kf_culled),
         "keyframes": len(sess.keyframes), "reloc_attempts": sess.reloc_attempts,
         "reloc_successes": sess.reloc_successes, "k2_in_reloc": reloc_k2,
-        "k1_launches": k1_launches, "k2_launches": launches, "timings_s": lc.timings,
+        "k1_launches": counted["corner_maps"], "k2_launches": counted["hamming_top2"],
+        "step_min": {n: min((c[n] for c in steps), default=0) for n in launches.KERNELS},
+        "timings_s": lc.timings,
     }
     return out, sess
 
@@ -1377,16 +1672,16 @@ def run_long(n: int, dev="cuda") -> tuple[dict, object]:
     """benchmarks/long_run.py's configuration on the card: n frames of the
     seed-19 orbit at 0.05 rad/frame, 640x480, rendered into one uint8 buffer
     on the card and fed through `add_frame_from_buffer` after
-    `prewarm(image=True)`; 1000 continuous-steered features, 256 slots,
+    `prewarm(image=True, buffer=buf)` (the buffer's step programs captured
+    before frame 0); 1000 continuous-steered features, 256 slots,
     max_points 30000, max_frames n + 32, the bundled vocabulary, min_gap
     and cooldown 60. K1 and K2 are counted from 0 after the prewarm; the
     solver routes of the loop closer and each Sim3 are recorded."""
     from monocular_slam_tpu_torch.datasets import render
     from monocular_slam_tpu_torch.eval import ate as ate_mod
-    from monocular_slam_tpu_torch.ops import fast_score, hamming
+    from monocular_slam_tpu_torch.ops import launches
     from monocular_slam_tpu_torch.optim import cg_ba, pose_graph
     from monocular_slam_tpu_torch.retrieval import vocabulary
-    from monocular_slam_tpu_torch.slam import tracker
     from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
     from monocular_slam_tpu_torch.slam.loop_closer import LoopCloser, LoopClosureConfig
     from monocular_slam_tpu_torch.slam.session import SlamSession
@@ -1403,10 +1698,10 @@ def run_long(n: int, dev="cuda") -> tuple[dict, object]:
     lc = LoopCloser(vocabulary.load_default(dev), cfg, LoopClosureConfig(min_gap=60, cooldown=60),
                     device=dev)
     sess = SlamSession(cfg, seed=0, run_ba=True, loop_closer=lc, device=dev)
-    prewarm_s = sess.prewarm(image=True)
+    prewarm_s = sess.prewarm(image=True, buffer=buf)
 
     routes = {"optimize": [], "optimize_cg": [], "bundle_adjust_cg": []}
-    track_k2, sim3_s, closes = [], [], []
+    sim3_s, closes = [], []
     undo = []
 
     def wrap(owner, attr, record):
@@ -1434,12 +1729,6 @@ def run_long(n: int, dev="cuda") -> tuple[dict, object]:
                        "max_center_norm": torch.linalg.norm(c, dim=-1).max().item()})
         return state, closed
 
-    def track(orig, *a, **kw):
-        before = hamming.LAUNCHES
-        res = orig(*a, **kw)
-        track_k2.append(hamming.LAUNCHES - before)
-        return res
-
     def timed_sim3(orig, *a, **kw):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1451,10 +1740,9 @@ def run_long(n: int, dev="cuda") -> tuple[dict, object]:
     wrap(pose_graph, "optimize", solve("optimize", lambda g: int(g.vertices.shape[0])))
     wrap(pose_graph, "optimize_cg", solve("optimize_cg", lambda g: int(g.vertices.shape[0])))
     wrap(cg_ba, "bundle_adjust_cg", solve("bundle_adjust_cg", lambda p: int(p.valid.sum())))
-    wrap(tracker, "track", track)
     wrap(lc, "compute_sim3", timed_sim3)
     wrap(lc, "close", close)
-    fast_score.LAUNCHES = hamming.LAUNCHES = 0
+    launches.reset()
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1469,7 +1757,9 @@ def run_long(n: int, dev="cuda") -> tuple[dict, object]:
     finally:
         for owner, attr, orig in reversed(undo):
             setattr(owner, attr, orig)
-    k1, k2 = fast_score.LAUNCHES, hamming.LAUNCHES
+    counted = launches.read()
+    k1, k2 = counted["corner_maps"], counted["hamming_top2"]
+    steps = sess.step_launches
     poses, valid, _ = sess.trajectory()
     # a pose whose camera centre ran off past 1e6 counts as non-finite
     with np.errstate(all="ignore"):
@@ -1493,7 +1783,8 @@ def run_long(n: int, dev="cuda") -> tuple[dict, object]:
         "keyframes_live": len(sess.keyframes), "frames_evicted": int((sess.state.slot_of[:n] < 0).sum()),
         "routes": routes, "reloc_attempts": sess.reloc_attempts,
         "reloc_successes": sess.reloc_successes, "k1_launches": k1, "k2_launches": k2,
-        "track_calls": len(track_k2), "k2_per_track_min": min(track_k2, default=0),
+        "track_calls": len(steps),
+        "step_min": {n: min((c[n] for c in steps), default=0) for n in launches.KERNELS},
         "sim3_s": sim3_s, "close_calls": closes, "closure_timings_s": lc.timings,
         "closure_s_per_run": {s: lc.timings[s] / nr for s in ("sim3", "pose_graph", "global_ba")},
     }
@@ -1540,8 +1831,8 @@ def phase_long() -> dict:
         raise AssertionError("long: no feature slot was evicted")
     if out["k1_launches"] != n:
         raise AssertionError(f"long: K1 launched {out['k1_launches']} times for {n} frames")
-    if out["k2_per_track_min"] < 2:
-        raise AssertionError(f"long: a track call launched K2 {out['k2_per_track_min']} times")
+    if any(out["step_min"][n] < STEP_MIN_LAUNCHES[n] for n in STEP_MIN_LAUNCHES):
+        raise AssertionError(f"long: fewest launches in a tracked step {out['step_min']}")
     return out
 
 
@@ -1708,6 +1999,8 @@ def main() -> int:
     timed("build", phase_build)
     timed("draws", phase_draws)
     res = timed("session", phase_session)
+    k3 = timed("k3", phase_k3)
+    prog = timed("program", phase_program, res)
     k2 = timed("k2", phase_k2, res["imgs"])
     timed("lc60", phase_lc60, res)
     loop, loop_sess = timed("loop", phase_loop)
@@ -1733,11 +2026,35 @@ def main() -> int:
          "max_abs_err": max(r["max_abs_err"] for r in k2.values()), "ms": win["ms"],
          "plain_ms": win["plain_ms"], "bound_ms": win["bound_ms"], "bound_by": win["bound_by"],
          "library_ms": None},
+        {"name": "small_eigh", "route": "cuda", "source": K3_SOURCE,
+         "replaces": K3_REPLACES, "launches": res["k3_launches"],
+         "max_abs_err": max(k3[n]["max_abs_err"] for n in k3 if n.startswith("eigh")),
+         **{f: k3["eigh (1000, 4, 4)"][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                    "library_ms")}},
+        {"name": "svd3", "route": "cuda", "source": K3_SOURCE,
+         "replaces": K3_SVD_REPLACES, "launches": res["k3_svd_launches"],
+         "max_abs_err": max(k3[n]["max_abs_err"] for n in k3 if n.startswith("svd3")),
+         **{f: k3["svd3 (1, 3, 3)"][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms")}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}), flush=True)
+    return 0
+
+
+def main_program() -> int:
+    """`python3 chip_smoke.py program`: the build, K3 and the step program
+    phases alone, on the session phase's course."""
+    from monocular_slam_tpu_torch.datasets import render
+
+    phase_device()
+    phase_build()
+    phase_k3()
+    imgs, poses_gt, k = render.render_sequence(seed=11, n_frames=N_FRAMES, wh=WH, device="cuda")
+    phase_program({"imgs": imgs, "poses_gt": poses_gt, "k": k})
+    log("[done] program phases passed")
     return 0
 
 
@@ -1751,4 +2068,4 @@ if __name__ == "__main__":
     from monocular_slam_tpu_torch.utils.device import apply_precision_policy
 
     apply_precision_policy()
-    sys.exit(main())
+    sys.exit(main_program() if sys.argv[1:] == ["program"] else main())

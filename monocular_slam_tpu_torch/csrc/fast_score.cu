@@ -119,8 +119,18 @@ __device__ __forceinline__ float raw_score(float (*tile)[SW], int sy, int sx) {
   return fmaxf(max_arc_min9(d), max_arc_min9(nd));
 }
 
+// One more launch on `*launches` (the port's launch counter): the first
+// thread of the first block adds one, so a replayed CUDA graph counts too.
+__device__ __forceinline__ void count_launch(unsigned long long* launches) {
+  if (launches != nullptr && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 &&
+      threadIdx.x == 0 && threadIdx.y == 0 && threadIdx.z == 0)
+    atomicAdd(launches, 1ULL);
+}
+
 __global__ void __launch_bounds__(NT)
-corner_maps_levels_kernel(const K1LevelTable T, float threshold) {
+corner_maps_levels_kernel(const K1LevelTable T, float threshold,
+                          unsigned long long* launches) {
+  count_launch(launches);
   __shared__ __align__(16) float tile[SH][SW];
   __shared__ float score[CH][CW];
   const int t = blockIdx.x;
@@ -203,9 +213,10 @@ corner_maps_levels_kernel(const K1LevelTable T, float threshold) {
 
 // Launches K1 over every level of `*table` on `stream`; returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a table
-// of 0 or more than 8 levels or an empty level.
+// of 0 or more than 8 levels or an empty level. The launch adds one to the
+// 64-bit counter at `launches` (none if null).
 extern "C" int fast_corner_maps_levels(const K1LevelTable* table, float threshold,
-                                       void* stream) {
+                                       void* launches, void* stream) {
   K1LevelTable T = *table;
   if (T.n_levels < 1 || T.n_levels > K1_MAX_LEVELS)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -223,6 +234,6 @@ extern "C" int fast_corner_maps_levels(const K1LevelTable* table, float threshol
   }
   T.tile0[K1_MAX_LEVELS] = tiles;
   corner_maps_levels_kernel<<<tiles, dim3(TW, BY), 0, static_cast<cudaStream_t>(stream)>>>(
-      T, threshold);
+      T, threshold, static_cast<unsigned long long*>(launches));
   return static_cast<int>(cudaGetLastError());
 }

@@ -174,12 +174,21 @@ __device__ __forceinline__ uint32_t ld_a32(const int8_t* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// One more launch on `*launches` (the port's launch counter): the first
+// thread of the first block adds one, so a replayed CUDA graph counts too.
+__device__ __forceinline__ void count_launch(unsigned long long* launches) {
+  if (launches != nullptr && blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0 &&
+      threadIdx.x == 0 && threadIdx.y == 0 && threadIdx.z == 0)
+    atomicAdd(launches, 1ULL);
+}
+
 __global__ void __launch_bounds__(NT)
 hamming_top2_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
                     const uint8_t* __restrict__ b_valid, int N, int M,
                     int* __restrict__ d1_out, int* __restrict__ d2_out,
                     int* __restrict__ idx_out, uint2* __restrict__ part,
-                    unsigned* __restrict__ tickets) {
+                    unsigned* __restrict__ tickets, unsigned long long* launches) {
+  count_launch(launches);
   extern __shared__ __align__(1024) uint8_t smem[];
   uint32_t* bases = reinterpret_cast<uint32_t*>(smem + STAGES * TILE_BYTES);
   __shared__ unsigned s_ticket;
@@ -302,10 +311,11 @@ hamming_top2_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
 // a: (N, 256) int8; b: (B, M, 256) int8; b_valid: (B, M) bool as bytes;
 // rows 16-byte aligned; d1, d2, idx: (B, N) int32. N >= 1, M >= 0, B >= 1,
 // 1 <= S <= max(1, ceil(M / 128)). With S > 1: part holds S x B x N uint2
-// and tickets B x ceil(N / 64) zeros, which the launch leaves at zero.
+// and tickets B x ceil(N / 64) zeros, which the launch leaves at zero. The
+// launch adds one to the 64-bit counter at `launches` (none if null).
 extern "C" int hamming_top2(const void* a, const void* b, const void* b_valid, int N, int M,
                             int B, int S, void* d1, void* d2, void* idx, void* part,
-                            void* tickets, void* stream) {
+                            void* tickets, void* launches, void* stream) {
   static int configured_device = -1;
   int dev = 0;
   cudaGetDevice(&dev);
@@ -320,6 +330,6 @@ extern "C" int hamming_top2(const void* a, const void* b, const void* b_valid, i
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(b),
       static_cast<const uint8_t*>(b_valid), N, M, static_cast<int*>(d1),
       static_cast<int*>(d2), static_cast<int*>(idx), static_cast<uint2*>(part),
-      static_cast<unsigned*>(tickets));
+      static_cast<unsigned*>(tickets), static_cast<unsigned long long*>(launches));
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,6 +10,7 @@ import torch
 from monocular_slam_tpu_torch.geometry import camera as cam
 from monocular_slam_tpu_torch.geometry import se3, so3
 from monocular_slam_tpu_torch.geometry.epipolar import _sample_indices
+from monocular_slam_tpu_torch.ops import small_eigh
 from monocular_slam_tpu_torch.optim import pose_ba
 from monocular_slam_tpu_torch.utils.linalg import gram, nullspace_vector, polar_orthogonalize
 from monocular_slam_tpu_torch.utils.scatter import take
@@ -40,7 +41,7 @@ def pnp_dlt(X, xy, w=None, solver: str = "eigh") -> torch.Tensor:
         scale = torch.pow(torch.clamp(det, min=_EPS), 1.0 / 3.0)
         R = polar_orthogonalize(M / torch.clamp(scale, min=_EPS)[..., None, None])
     else:
-        s = torch.linalg.svdvals(M)
+        s = small_eigh.svdvals3(M)
         scale = s.mean(-1)
         R = so3.project_to_so3(M)
     t = P[..., :3, 3] / torch.clamp(scale, min=_EPS)[..., None]

@@ -8,6 +8,9 @@ from __future__ import annotations
 
 import torch
 
+from monocular_slam_tpu_torch.ops import small_eigh
+from monocular_slam_tpu_torch.utils.linalg import det3x3
+
 _EPS = 1e-8
 
 
@@ -124,9 +127,11 @@ def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
 
 
 def project_to_so3(M: torch.Tensor) -> torch.Tensor:
-    """Nearest rotation (Frobenius) via SVD, det = +1 enforced."""
-    U, _, Vt = torch.linalg.svd(M)
-    det = torch.linalg.det(U @ Vt)
+    """Nearest rotation (Frobenius) via SVD, det = +1 enforced. On a card
+    the SVD is K3's (`ops/small_eigh.svd3`) and the determinant the closed
+    form, neither of which waits on the host."""
+    U, _, Vt = small_eigh.svd3(M)
+    det = det3x3(U @ Vt) if M.is_cuda else torch.linalg.det(U @ Vt)
     D = torch.ones(M.shape[:-2] + (3,), dtype=M.dtype, device=M.device)
     D = torch.cat([D[..., :2], det[..., None]], dim=-1)
     return (U * D[..., None, :]) @ Vt

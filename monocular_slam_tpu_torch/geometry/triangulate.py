@@ -1,5 +1,7 @@
 """DLT triangulation, batched over points (counterpart of
-`monocular_slam_tpu/geometry/triangulate.py`)."""
+`monocular_slam_tpu/geometry/triangulate.py`). The (..., 4, 4) normal
+matrices are decomposed by K3 (`ops/small_eigh.py`) on a card and by
+`torch.linalg.eigh` on the CPU."""
 
 from __future__ import annotations
 
@@ -7,6 +9,7 @@ import torch
 
 from monocular_slam_tpu_torch.geometry import camera as cam
 from monocular_slam_tpu_torch.geometry import se3
+from monocular_slam_tpu_torch.ops import small_eigh
 from monocular_slam_tpu_torch.utils.linalg import gram
 
 _EPS = 1e-12
@@ -30,7 +33,7 @@ def triangulate_dlt(P1, P2, uv1, uv2) -> torch.Tensor:
     a2, a3 = rows(P2, uv2)
     A = torch.stack(torch.broadcast_tensors(a0, a1, a2, a3), dim=-2)  # (..., N, 4, 4)
     A = A / torch.clamp(torch.linalg.norm(A, dim=-1, keepdim=True), min=_EPS)
-    _, V = torch.linalg.eigh(gram(A))
+    _, V = small_eigh.eigh(gram(A))  # K3 on a card
     Xh = V[..., :, 0]
     w = Xh[..., 3]
     w_safe = torch.where(w.abs() < _EPS, torch.where(w < 0, -_EPS, _EPS).to(w.dtype), w)

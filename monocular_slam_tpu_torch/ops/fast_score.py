@@ -7,7 +7,7 @@ pair per (H_l, W_l) float32 level:
 
   - on CUDA tensors it launches the kernel in `csrc/fast_score.cu` once for
     all levels on the current stream, into one allocation for every map,
-    and adds one to `LAUNCHES`; anything the kernel does not take raises,
+    and the launch adds one to its counter (`ops/launches.py`); anything the kernel does not take raises,
     and a kernel that fails to build or launch raises;
   - on CPU tensors it returns `corner_maps_levels_plain`, the same maps from
     the whole-image tensor forms of `ops/fast.py`.
@@ -26,10 +26,9 @@ import ctypes
 
 import torch
 
-from monocular_slam_tpu_torch.ops import fast
+from monocular_slam_tpu_torch.ops import fast, launches
 from monocular_slam_tpu_torch.utils import cuda_build
 
-LAUNCHES = 0  # kernel launches by `corner_maps_levels` in this process
 MAX_LEVELS = 8  # K1_MAX_LEVELS in csrc/fast_score.cu
 
 _lib = None
@@ -66,7 +65,7 @@ def load():
     global _lib
     if _lib is None:
         _lib = cuda_build.load("fast_score", BUILD_INFO, "fast_corner_maps_levels", [
-            ctypes.POINTER(_LevelTable), ctypes.c_float, ctypes.c_void_p,
+            ctypes.POINTER(_LevelTable), ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p,
         ])
     return _lib
 
@@ -76,7 +75,6 @@ def corner_maps_levels(levels, threshold: float = 20.0):
     map equals `fast.nms3(fast.corner_score(level, threshold))`; each raw
     map equals `fast.corner_score_raw(level)` at least 3 pixels from that
     level's edge."""
-    global LAUNCHES
     n = len(levels)
     if not 1 <= n <= MAX_LEVELS:
         raise ValueError(f"corner_maps_levels takes 1 to {MAX_LEVELS} levels, got {n}")
@@ -109,10 +107,10 @@ def corner_maps_levels(levels, threshold: float = 20.0):
     table.H[:n] = [img.shape[0] for img in levels]
     table.W[:n] = [img.shape[1] for img in levels]
     err = lib.fast_corner_maps_levels(ctypes.byref(table), float(threshold),
+                                      launches.pointer("corner_maps", dev),
                                       cuda_build.current_stream())
     if err != 0:
         raise RuntimeError(f"fast_corner_maps_levels launch failed: CUDA error {err}")
-    LAUNCHES += 1
     return list(zip(maps[0::2], maps[1::2]))
 
 

@@ -6,7 +6,8 @@ second-best distance, index of the best) over the valid database rows, for
 one database (M, 256) or a batch of them (B, M, 256):
 
   - on CUDA tensors it launches the kernel in `csrc/hamming_top2.cu` on the
-    current stream (`hamming_top2_cuda`) and adds one to `LAUNCHES`; an
+    current stream (`hamming_top2_cuda`), whose launch adds one to its
+    counter (`ops/launches.py`); an
     input the kernel does not take raises, and a kernel that fails to build
     or launch raises;
   - on CPU tensors it returns `hamming_top2_plain`, the dense distance
@@ -24,9 +25,9 @@ import ctypes
 
 import torch
 
+from monocular_slam_tpu_torch.ops import launches
 from monocular_slam_tpu_torch.utils import cuda_build
 
-LAUNCHES = 0  # kernel launches by `hamming_top2_cuda` in this process
 BIG = 1 << 20
 DESC = 256
 MAX_DB_ROWS = 1 << 22  # the kernel's keys hold the row index in 22 bits
@@ -40,6 +41,7 @@ _lib = None
 BUILD_INFO: dict = {}  # filled by `load()`: path, seconds, log
 _sm_count: dict = {}  # device index -> multiprocessors
 _tickets: dict = {}  # (device index, stream) -> int32 zeros the kernel leaves at zero
+_retired: list = []  # outgrown ticket buffers: a captured step may still hold their address
 
 
 def load():
@@ -49,7 +51,7 @@ def load():
         _lib = cuda_build.load("hamming_top2", BUILD_INFO, "hamming_top2", [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ])
     return _lib
 
@@ -94,9 +96,14 @@ def splits(N: int, M: int, B: int, n_sm: int) -> int:
 
 
 def _ticket_buffer(dev: int, stream: int, n: int) -> torch.Tensor:
+    """The stream's ticket counters. The session's step programs capture
+    them on their capture stream: the buffer is made by the capture's
+    warm-up run, not inside the capture, and is kept alive after it."""
     key = (dev, stream)
     buf = _tickets.get(key)
     if buf is None or buf.numel() < n:
+        if buf is not None:
+            _retired.append(buf)
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=f"cuda:{dev}")
         _tickets[key] = buf
     return buf
@@ -107,7 +114,6 @@ def hamming_top2_cuda(a_pm1: torch.Tensor, b_pm1: torch.Tensor, b_valid: torch.T
     and b (M, 256) int8 with b_valid (M,) bool -> (N,) each, or b (B, M,
     256) with b_valid (B, M) -> (B, N) each; all contiguous on the current
     card."""
-    global LAUNCHES
     _check("a", a_pm1, torch.int8, (2,))
     _check("b", b_pm1, torch.int8, (2, 3))
     _check("b_valid", b_valid, torch.bool, (b_pm1.dim() - 1,))
@@ -150,11 +156,11 @@ def hamming_top2_cuda(a_pm1: torch.Tensor, b_pm1: torch.Tensor, b_valid: torch.T
     lib = load()
     err = lib.hamming_top2(
         a_pm1.data_ptr(), b_pm1.data_ptr(), b_valid.data_ptr(), N, M, B, S,
-        d1.data_ptr(), d2.data_ptr(), idx.data_ptr(), part, tickets, stream,
+        d1.data_ptr(), d2.data_ptr(), idx.data_ptr(), part, tickets,
+        launches.pointer("hamming_top2", dev), stream,
     )
     if err != 0:
         raise RuntimeError(f"hamming_top2 launch failed: CUDA error {err}")
-    LAUNCHES += 1
     return d1, d2, idx
 
 

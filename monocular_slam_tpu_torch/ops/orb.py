@@ -52,6 +52,19 @@ def _disc_moment_masks() -> tuple[np.ndarray, np.ndarray]:
 _WY, _WX = _disc_moment_masks()
 
 
+_CONSTS: dict = {}
+
+
+def _on(arr, dtype, device) -> torch.Tensor:
+    """A host constant's copy on `device`, made once: a per-call upload
+    would be a host-to-device copy inside the captured step."""
+    key = (id(arr), dtype, str(device))
+    t = _CONSTS.get(key)
+    if t is None:
+        t = _CONSTS[key] = torch.as_tensor(arr, dtype=dtype, device=device)
+    return t
+
+
 def _patches(img: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor, d: int) -> torch.Tensor:
     """(K, d, d) patches with top-left corners (y0, x0) (caller keeps them
     inside the image)."""
@@ -70,8 +83,8 @@ def orientations(img: torch.Tensor, yx: torch.Tensor) -> torch.Tensor:
     y0 = torch.clamp(yx[:, 0].to(torch.long) - r, 0, H - d)
     x0 = torch.clamp(yx[:, 1].to(torch.long) - r, 0, W - d)
     p = _patches(img, y0, x0, d)
-    wy = torch.as_tensor(_WY, dtype=img.dtype, device=img.device)
-    wx = torch.as_tensor(_WX, dtype=img.dtype, device=img.device)
+    wy = _on(_WY, img.dtype, img.device)
+    wx = _on(_WX, img.dtype, img.device)
     m01 = (p * wy[None]).sum((1, 2))
     m10 = (p * wx[None]).sum((1, 2))
     return torch.atan2(m01, m10)
@@ -103,7 +116,7 @@ def _descriptors_continuous(img: torch.Tensor, yx: torch.Tensor, angles: torch.T
     yi = torch.clamp(yx[:, 0].to(torch.long), 0, H - 1)
     xi = torch.clamp(yx[:, 1].to(torch.long), 0, W - 1)
     c, s = torch.cos(angles), torch.sin(angles)
-    pat = torch.as_tensor(PATTERN, dtype=torch.float32, device=img.device)
+    pat = _on(PATTERN, torch.float32, img.device)
     py = torch.cat([pat[:, 0], pat[:, 2]])
     px = torch.cat([pat[:, 1], pat[:, 3]])
     ry = torch.round(s[:, None] * px[None, :] + c[:, None] * py[None, :])

@@ -181,9 +181,9 @@ def bundle_adjust(prob, n_iters: int = FULL_BA_ITER, delta: float = THRESH_HUBER
     ])
     chi2_init = lin["chi2"]
     st = lm.LMState(
-        lm.init_lambda(diag0, tau), torch.tensor(2.0, dtype=dtype, device=dev),
-        lin["chi2"], torch.tensor(0, dtype=torch.int32, device=dev),
-        torch.tensor(False, device=dev),
+        lm.init_lambda(diag0, tau), torch.full((), 2.0, dtype=dtype, device=dev),
+        lin["chi2"], torch.zeros((), dtype=torch.int32, device=dev),
+        torch.zeros((), dtype=torch.bool, device=dev),
     )
     poses, points = prob.poses, prob.points
     chi2_h, lam_h, acc_h = [], [], []

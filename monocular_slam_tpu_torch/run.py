@@ -53,27 +53,6 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-@contextlib.contextmanager
-def _k2_per_track_call(record: list):
-    """Record the K2 launches inside each `tracker.track` call."""
-    from monocular_slam_tpu_torch.ops import hamming
-    from monocular_slam_tpu_torch.slam import tracker
-
-    plain = tracker.track
-
-    def counted(*a, **kw):
-        before = hamming.LAUNCHES
-        res = plain(*a, **kw)
-        record.append(hamming.LAUNCHES - before)
-        return res
-
-    tracker.track = counted
-    try:
-        yield
-    finally:
-        tracker.track = plain
-
-
 def main(argv=None) -> int:
     args = build_argparser().parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
@@ -82,7 +61,7 @@ def main(argv=None) -> int:
 
     from monocular_slam_tpu_torch.eval import ate as ate_mod
     from monocular_slam_tpu_torch.io import ply, trajectory
-    from monocular_slam_tpu_torch.ops import fast_score, hamming
+    from monocular_slam_tpu_torch.ops import launches
     from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
     from monocular_slam_tpu_torch.slam.session import SlamSession
     from monocular_slam_tpu_torch.utils.device import resolve_device
@@ -178,15 +157,15 @@ def main(argv=None) -> int:
             lc = closer
 
     # pay the kernel builds and first-use costs before frame 0
-    prewarm_s = sess.prewarm(image=any(f[0] == "image" for f in frames))
+    images = [f for f in frames if f[0] == "image"]
+    prewarm_s = sess.prewarm(image=bool(images),
+                             image_hw=np.shape(loader(images[0][1]))[:2] if images else None)
 
     # --- main loop (the reference's per-frame stage loop, main.cpp:48-51) ---
     trace_cm = device_trace(args.profile) if args.profile else contextlib.nullcontext()
-    track_k2: list[int] = []
-    count_cm = _k2_per_track_call(track_k2) if args.verbose else contextlib.nullcontext()
-    k1_0, k2_0 = fast_score.LAUNCHES, hamming.LAUNCHES
+    launches.reset()  # the kernels' counts from here on are the frames'
     t0 = time.perf_counter()
-    with trace_cm, count_cm:
+    with trace_cm:
         for idx, item in enumerate(frames):
             kind = item[0]
             if kind == "features":
@@ -223,10 +202,12 @@ def main(argv=None) -> int:
         print(f"[run] plot skipped: {e}")
 
     if args.verbose:
+        counts, steps = launches.read(), sess.step_launches
         print("[run] kernel launches " + json.dumps({
-            "fast_corner_maps_levels": fast_score.LAUNCHES - k1_0,
-            "hamming_top2": hamming.LAUNCHES - k2_0,
-            "track_calls": len(track_k2), "k2_per_track_min": min(track_k2, default=0),
+            "fast_corner_maps_levels": counts["corner_maps"],
+            "hamming_top2": counts["hamming_top2"], "small_eigh": counts["small_eigh"],
+            "svd3": counts["svd3"], "track_calls": len(steps),
+            "k2_per_track_min": min((c["hamming_top2"] for c in steps), default=0),
         }))
     summary = {
         "frames": int(len(frames)),

@@ -2,7 +2,8 @@
 `monocular_slam_tpu/slam/local_ba.py`): the W frames most covisible with
 frame i (including it) are free, the next W are fixed anchors, and every map
 point the window observes is free, compacted into a small slab and solved
-on the (P, F) grid engine of `optim/window_ba.py`."""
+on the (P, F) grid engine of `optim/window_ba.py`. The frame id `i` is a
+host int or a 0-d device tensor."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from monocular_slam_tpu_torch.optim import window_ba
 from monocular_slam_tpu_torch.slam import state as state_mod
 from monocular_slam_tpu_torch.slam.config import SlamConfig
 from monocular_slam_tpu_torch.slam.state import SlamState
-from monocular_slam_tpu_torch.utils.scatter import mark, set_last, take, topk_stable
+from monocular_slam_tpu_torch.utils.scatter import index1, mark, put, set_last, take, topk_stable
 
 
 class LocalBAResult(NamedTuple):
@@ -23,7 +24,7 @@ class LocalBAResult(NamedTuple):
     chi2_final: torch.Tensor
 
 
-def _covisibility_row(state: SlamState, i: int) -> torch.Tensor:
+def _covisibility_row(state: SlamState, i) -> torch.Tensor:
     """(F,) shared valid map points between frame i and every frame."""
     P = state.points.shape[0]
     F = state.poses.shape[0]
@@ -39,7 +40,7 @@ def _covisibility_row(state: SlamState, i: int) -> torch.Tensor:
     return row[:F]
 
 
-def _select_window(state: SlamState, i: int, cfg: SlamConfig):
+def _select_window(state: SlamState, i, cfg: SlamConfig):
     """(g_safe (2W,), valid_frame (2W,), fixed (2W,)) of the active window."""
     W = cfg.ba.window
     F2 = 2 * W
@@ -52,7 +53,7 @@ def _select_window(state: SlamState, i: int, cfg: SlamConfig):
         past = (idxF < i) & state.pose_valid & (state.slot_of >= 0)
         score = torch.where(past, row.to(torch.float32), -1.0)
         score = score + torch.arange(F, dtype=torch.float32, device=dev) / F
-        score[max(i, 0)] = 3e38
+        score = put(score, torch.clamp(index1(i, dev)[0], min=0), 3e38)
         vals, g_safe = topk_stable(score, F2)
         valid_frame = (vals > 0.0) & state.pose_valid[g_safe]
         free = (slot < W) & valid_frame
@@ -65,7 +66,7 @@ def _select_window(state: SlamState, i: int, cfg: SlamConfig):
     return g_safe, valid_frame, fixed
 
 
-def local_bundle_adjust(state: SlamState, i: int, cfg: SlamConfig) -> LocalBAResult:
+def local_bundle_adjust(state: SlamState, i, cfg: SlamConfig) -> LocalBAResult:
     N = state.feat_point.shape[1]
     F2 = 2 * cfg.ba.window
     dev = state.poses.device

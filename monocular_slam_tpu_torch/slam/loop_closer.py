@@ -45,7 +45,7 @@ from monocular_slam_tpu_torch.slam import state as state_mod
 from monocular_slam_tpu_torch.slam.config import SlamConfig
 from monocular_slam_tpu_torch.slam.state import SlamState
 from monocular_slam_tpu_torch.utils.device import resolve_device
-from monocular_slam_tpu_torch.utils.scatter import mark, segment_min, set_last, take
+from monocular_slam_tpu_torch.utils.scatter import index1, mark, segment_min, set_last, take
 
 # PCG steps per LM iteration of the CG routes. The reference runs 50 (global
 # BA) and 100 (pose graph). On its own rendered revisit course
@@ -105,9 +105,9 @@ class DetectOut(NamedTuple):
 
 def null_detect_out(device=None) -> DetectOut:
     """The detection outputs of a frame that was not queried."""
-    return DetectOut(torch.tensor(-1, dtype=torch.int32, device=device),
-                     torch.tensor(0.0, device=device), torch.tensor(0.0, device=device),
-                     torch.tensor(0, dtype=torch.int32, device=device))
+    return DetectOut(torch.full((), -1, dtype=torch.int32, device=device),
+                     torch.zeros((), device=device), torch.zeros((), device=device),
+                     torch.zeros((), dtype=torch.int32, device=device))
 
 
 def _select_candidate(scores, eligible):
@@ -145,7 +145,7 @@ def detect_step(voc: vocab_mod.Vocabulary, lc: LoopClosureConfig, db: torch.Tens
         eligible = eligible & (mapping.covisibility_row(state, i) < lc.min_covis)
     det = _select_candidate(scores, eligible)
     if torch.is_tensor(is_kf):
-        db[i] = torch.where(is_kf, q, db[i])
+        db.index_copy_(0, index1(i, db.device), torch.where(is_kf, q, take(db, i))[None])
     elif is_kf:
         db[i] = q
     return db, det

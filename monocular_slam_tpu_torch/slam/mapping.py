@@ -1,6 +1,7 @@
 """Local-mapping hygiene: observation bookkeeping, map-point culling,
 projection-guided fuse, keyframe overlap and the covisibility graph
-(counterpart of `monocular_slam_tpu/slam/mapping.py`)."""
+(counterpart of `monocular_slam_tpu/slam/mapping.py`). A frame id `i` is a
+host int or a 0-d device tensor."""
 
 from __future__ import annotations
 
@@ -45,7 +46,7 @@ def point_descriptors(state: SlamState):
     return state.desc_pm1.reshape(S * N, -1)[first_safe], has
 
 
-def cull_points(state: SlamState, i: int, min_obs: int = 3, grace: int = 3):
+def cull_points(state: SlamState, i, min_obs: int = 3, grace: int = 3):
     """Invalidate points older than `grace` frames with fewer than
     `min_obs` observations and clear their feature associations.
     Returns (state', n_culled)."""
@@ -68,7 +69,7 @@ class FuseResult(NamedTuple):
     n_associated: torch.Tensor
 
 
-def fuse(state: SlamState, i: int, radius_px: float = 4.0, max_hamming: int = 60,
+def fuse(state: SlamState, i, radius_px: float = 4.0, max_hamming: int = 60,
          image_wh=(640, 480), slab_cap: int = 4096) -> FuseResult:
     """Features of frame i without a map point adopt the best projecting
     point within `radius_px` whose representative descriptor is within
@@ -76,8 +77,8 @@ def fuse(state: SlamState, i: int, radius_px: float = 4.0, max_hamming: int = 60
     P = state.points.shape[0]
     L = min(slab_cap, P)
     dev = state.points.device
-    Xc = se3.apply(state.poses[i], state.points)
-    uv_proj = cam.project(state.k[i], Xc)
+    Xc = se3.apply(take(state.poses, i), state.points)
+    uv_proj = cam.project(take(state.k, i), Xc)
     vis = state.point_valid & (Xc[:, 2] > 1e-3) & cam.in_image(uv_proj, image_wh[0], image_wh[1])
     pdesc, has_desc = point_descriptors(state)
     vis = vis & has_desc
@@ -104,7 +105,7 @@ def fuse(state: SlamState, i: int, radius_px: float = 4.0, max_hamming: int = 60
     return FuseResult(state, adopt.to(torch.int32).sum())
 
 
-def frame_overlap(state: SlamState, i: int, j) -> torch.Tensor:
+def frame_overlap(state: SlamState, i, j) -> torch.Tensor:
     """Fraction of frame i's associated points also observed by frame j."""
     si = state_mod.slot_index(state, i)
     sj = state_mod.slot_index(state, j)
@@ -150,7 +151,7 @@ def _incidence(state: SlamState) -> torch.Tensor:
 def covisibility_row(state: SlamState, i) -> torch.Tensor:
     """(F,) int32 shared-map-point counts between frame i and every frame."""
     inc = _incidence(state)
-    return (inc @ inc[i]).to(torch.int32)
+    return (inc @ take(inc, i)).to(torch.int32)
 
 
 def covisibility_window(state: SlamState, i, min_shared: int = 15) -> torch.Tensor:

@@ -1,30 +1,44 @@
-"""SlamSession — the host loop over the SLAM stages (counterpart of the
-image and feature paths and the loop-closer half of
-`monocular_slam_tpu/slam/session.py`).
+"""SlamSession — the host loop over the SLAM stages and the per-frame step
+program (counterpart of `monocular_slam_tpu/slam/session.py`).
 
 Frame 0 is the reference; later frames bootstrap against it until the
-two-view map is accepted; every frame after that runs one step: ORB
-extraction (the K1 kernel on a card) -> undistortion -> state ingest ->
-`tracker.track` -> the keyframe rule -> the mapping block -> with a loop
-closer attached, `loop_closer.detect_step`. The mapping block runs, as in
-the reference, either at keyframe rate plus the cadence floor and warmup
-(fuse -> windowed local BA -> cull; `BAConfig.keyframe_only`, the default)
-or on every tracked frame (local BA, then fuse every `fuse_every` and cull
-every `cull_every` frames).
+two-view map is accepted; every frame after that runs one step:
+`session_step` (`track_step`: tracking and the keyframe rule; then
+`mapping_block`), inside `image_session_step` for an image (`image_ingest`:
+ORB extraction on K1, undistortion, state ingest first), then `pack_step`
+(loop-closure detection with a closer attached, and ONE packed int32
+vector of the frame's outcomes). The mapping
+block runs, as in the reference, either at keyframe rate plus the cadence
+floor and warmup (fuse -> windowed local BA -> cull;
+`BAConfig.keyframe_only`, the default) or on every tracked frame (local BA,
+then fuse every `fuse_every` and cull every `cull_every` frames), each part
+under `utils/graph.cond`, the counterpart of the reference's `lax.cond`.
 
-The reference compiles the step into one program with `lax.cond` around the
-mapping block. Here the step runs eagerly and pulls ONE packed vector per
-frame to the host (tracked, keyframe, mapping flag, inlier and new-point
-counts), then decides the mapping block with a Python `if`. Inside, the LM
-loops are branch-free. Linear-algebra calls that check their status on the
-host (`eigh`, `svd`) add syncs of their own; `chip_smoke.py` counts them.
-
-With a loop closer, per-frame outcomes are acted on `stat_lag` frames late,
-as in the reference: the consistency check and closures, relocalization
-after `reloc_after` failures, and FrameCulling every `kf_cull_every`
-keyframes (dispatched on the state of its frame, applied `stat_lag` frames
-later). So closures, relocalizations and culls fire on the same frames as
-in the reference.
+The step functions take the frame id, the feature slot, the image buffer
+index, the last keyframe and the PnP key as 0-d (key: (2,)) device
+tensors, as the reference traces them. On a card the session captures them
+into CUDA graphs (`utils/graph.Program`), the counterpart of the
+reference's `jax.jit` of the step, and keeps the state in static device
+buffers that the graphs update in place. The card's torch (2.11) has no
+conditional graph nodes, so a tracked frame is TWO replays: the tracked
+part (ingest, extraction, `track_step`) captured per (path, steering mode,
+frame layout), then, after ONE host read of its flags, the mapping program
+that matches `mapping_predicates` (the mapping block's parts decided, then
+detection and the packed vector), captured per decision and closer. Per
+tracked frame the host allocates the feature slot, splits the keys (the
+session's `_split`, then `tracker.track`'s `split(key)[0]`), writes [i,
+slot, j, key words, k, dist] into a pinned ring row, issues one H2D copy,
+replays the tracked part, reads its six flags, replays the mapping program
+and issues one D2H copy of the packed vector into the ring with an event.
+`FrameStats` reads that row once the event is done; the session acts on
+outcomes `stat_lag` frames late, as the reference does (keyframe folding,
+steering health, closures, relocalization after `reloc_after` failures,
+FrameCulling every `kf_cull_every` keyframes). Those eager paths, and the
+bootstrap, copy the state they produce back into the static buffers. A
+capture, build or launch failure raises: no tracked frame on a card runs
+eagerly unless the private `_use_graphs` switch is cleared before the
+first frame (the A/B of `chip_smoke.py`). On the CPU the same functions
+run eagerly, and `graph.cond` reads each predicate.
 
 The session is keyed like the reference: `PRNGKey(seed)`, split once per
 bootstrap attempt, tracked frame, closure and relocalization candidate, at
@@ -32,23 +46,25 @@ the reference's call sites and in its order (`_split`). Each RANSAC makes
 its uniforms from its key on the session's device (`utils/prng.py`), so the
 same seed gives the reference's draws and its trajectory.
 
-`prewarm` pays the step's one-time costs (kernel builds, the first
-extraction, functorch's first-use imports) before frame 0;
-`add_frame_from_buffer` takes frames from a buffer already on the device.
+`prewarm` pays the one-time costs (kernel builds, captures, functorch's
+first-use imports) before frame 0; `add_frame_from_buffer` takes frames
+from a buffer already on the device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from monocular_slam_tpu_torch.geometry import alignment, sim3
 from monocular_slam_tpu_torch.geometry import camera as cam
-from monocular_slam_tpu_torch.ops import fast_score, hamming, orb
+from monocular_slam_tpu_torch.ops import fast_score, hamming, launches, orb, small_eigh
 from monocular_slam_tpu_torch.ops import features as features_mod
 from monocular_slam_tpu_torch.optim import pose_graph
 from monocular_slam_tpu_torch.slam import keyframes as kf_mod
@@ -57,70 +73,293 @@ from monocular_slam_tpu_torch.slam import loop_closer as lc_mod
 from monocular_slam_tpu_torch.slam import state as state_mod
 from monocular_slam_tpu_torch.slam.config import SlamConfig
 from monocular_slam_tpu_torch.slam.state import SlamState
-from monocular_slam_tpu_torch.utils import prng
+from monocular_slam_tpu_torch.utils import graph, prng
 from monocular_slam_tpu_torch.utils.device import resolve_device
+from monocular_slam_tpu_torch.utils.scatter import take
+
+# the packed per-frame vector: the int32 fields, then the float32 fields
+# bitcast into int32 lanes (the reference's layout, session.py:38-44)
+_I32_FIELDS = (
+    "tracked", "n_inliers", "n_new_points", "n_fused", "n_culled",
+    "is_keyframe", "last_kf", "cand_j", "cand_n",
+)
+_F32_FIELDS = ("chi2_before", "chi2_after", "cand_score", "cand_floor")
+_BOOL_FIELDS = frozenset({"tracked", "is_keyframe"})
+PACKED_LEN = len(_I32_FIELDS) + len(_F32_FIELDS)
+# a ring row's control words: i, slot, j, the PnP key's two words, then the
+# float32 bits of k (4) and dist (5)
+_CTRL_LEN = 14
+
+
+def unpack(packed: np.ndarray) -> dict:
+    """The fields of one packed vector (host int32 array)."""
+    n_i = len(_I32_FIELDS)
+    vals = {n: (bool(x) if n in _BOOL_FIELDS else int(x))
+            for n, x in zip(_I32_FIELDS, packed[:n_i])}
+    vals.update({n: float(x) for n, x in zip(_F32_FIELDS, packed[n_i:].view(np.float32))})
+    return vals
 
 
 class FrameStats:
-    """Per-frame outcomes. Host fields are plain values; the mapping
-    block's chi2 and fuse/cull counts stay device scalars until read, and
-    the four detection outputs (`cand_j`, `cand_score`, `cand_floor`,
-    `cand_n`) one packed device vector, pulled once on first read."""
+    """Per-frame outcomes. A tracked frame's values arrive as one packed
+    int32 vector in a host ring row, copied there from the device behind an
+    event; reading any field resolves the row once (waiting on the event
+    only if the device has not reached it yet). `launches` is, for a
+    tracked step, the launches of each kernel (`ops/launches.KERNELS`) that
+    the card counted between the step's start and end, else None."""
 
-    _DEVICE = ("chi2_before", "chi2_after", "n_fused", "n_culled")
-    _DETECT = ("cand_j", "cand_score", "cand_floor", "cand_n")
+    __slots__ = ("frame", "loop_closed", "_row", "_counts", "_event", "_vals")
+    waits = 0  # resolutions in this process that had to wait on the device
 
     def __init__(self, frame: int, **kw):
-        self.frame = frame
-        self.tracked = False
-        self.n_inliers = 0
-        self.n_new_points = 0
-        self.is_keyframe = False
-        self.last_kf = -1
-        self.loop_closed = False
-        self._dev = {"chi2_before": math.nan, "chi2_after": math.nan,
-                     "n_fused": 0, "n_culled": 0}
-        self._det = None
-        self._det_vals = {"cand_j": -1, "cand_score": 0.0, "cand_floor": 0.0, "cand_n": 0}
-        for n, v in kw.items():
-            setattr(self, n, v)
+        object.__setattr__(self, "frame", frame)
+        object.__setattr__(self, "loop_closed", False)
+        object.__setattr__(self, "_row", None)
+        object.__setattr__(self, "_counts", None)
+        object.__setattr__(self, "_event", None)
+        vals = {
+            "tracked": False, "n_inliers": 0, "n_new_points": 0,
+            "n_fused": 0, "n_culled": 0, "is_keyframe": False,
+            "last_kf": -1, "cand_j": -1, "cand_n": 0,
+            "chi2_before": math.nan, "chi2_after": math.nan,
+            "cand_score": 0.0, "cand_floor": 0.0, "launches": None,
+        }
+        vals.update(kw)
+        object.__setattr__(self, "_vals", vals)
 
-    def _set_detect(self, det: lc_mod.DetectOut) -> None:
-        self._det = torch.stack([x.to(torch.float64) for x in det])
+    def _set_host(self, row: torch.Tensor, counts: torch.Tensor, event) -> None:
+        object.__setattr__(self, "_row", row)
+        object.__setattr__(self, "_counts", counts)
+        object.__setattr__(self, "_event", event)
 
     def _resolve(self) -> None:
-        if self._det is not None:
-            j, score, floor, n = self._det.tolist()
-            self._det_vals.update(cand_j=int(j), cand_score=score, cand_floor=floor, cand_n=int(n))
-            self._det = None
+        row = self._row
+        if row is None:
+            return
+        ev = self._event
+        if ev is not None and not ev.query():
+            FrameStats.waits += 1
+            ev.synchronize()
+        self._vals.update(unpack(row.numpy()))
+        c = self._counts.numpy()
+        self._vals["launches"] = dict(zip(launches.KERNELS, (int(n) for n in c[1] - c[0])))
+        object.__setattr__(self, "_row", None)
+        object.__setattr__(self, "_counts", None)
+        object.__setattr__(self, "_event", None)
 
     def __getattr__(self, name):
-        d = self.__dict__
-        dev = d.get("_dev")
-        if dev is not None and name in dev:
-            v = dev[name]
-            if torch.is_tensor(v):
-                v = v.item()
-                dev[name] = v
-            return v
-        if name in FrameStats._DETECT and "_det_vals" in d:
-            self._resolve()
-            return d["_det_vals"][name]
+        vals = object.__getattribute__(self, "_vals")
+        if name in vals:
+            FrameStats._resolve(self)
+            return vals[name]
         raise AttributeError(name)
 
     def __setattr__(self, name, value):
-        if name in FrameStats._DEVICE:
-            self._dev[name] = value
-        elif name in FrameStats._DETECT:
-            self._resolve()
-            self._det_vals[name] = value
-        else:
+        if name in FrameStats.__slots__:
             object.__setattr__(self, name, value)
+        else:
+            FrameStats._resolve(self)
+            self._vals[name] = value
 
-    def __repr__(self):
-        host = {n: v for n, v in self.__dict__.items() if not n.startswith("_")}
-        host.update({n: getattr(self, n) for n in FrameStats._DEVICE + FrameStats._DETECT})
-        return f"FrameStats({host})"
+    def __repr__(self):  # resolves: a debugging aid
+        self._resolve()
+        return f"FrameStats(frame={self.frame}, {self._vals})"
+
+
+class StepStats(NamedTuple):
+    tracked: torch.Tensor
+    n_inliers: torch.Tensor
+    n_new_points: torch.Tensor
+    chi2_before: torch.Tensor
+    chi2_after: torch.Tensor
+    n_fused: torch.Tensor
+    n_culled: torch.Tensor
+    is_keyframe: torch.Tensor
+    last_kf: torch.Tensor
+
+
+class TrackOut(NamedTuple):
+    """What the tracked part of the step hands the mapping block."""
+
+    state: SlamState
+    ok: torch.Tensor
+    n_inliers: torch.Tensor
+    n_new_points: torch.Tensor
+    is_keyframe: torch.Tensor
+    run_map: torch.Tensor
+    last_kf: torch.Tensor
+
+
+def track_step(state: SlamState, i: torch.Tensor, last_kf: torch.Tensor, pnp_key: torch.Tensor,
+               cfg: SlamConfig) -> TrackOut:
+    """PnP track of frame i and the keyframe rule: first tracked frame,
+    overlap with the last keyframe dropped, or max gap exceeded (an evicted
+    last keyframe counts as 0 overlap). `run_map` is the keyframe-rate
+    mapping block's predicate (keyframe, cadence floor, warmup)."""
+    i = i.reshape(()).long()
+    last_kf = last_kf.reshape(()).to(torch.int32)
+    m = cfg.mapping
+    tres = tracker.track(state, i, None, cfg, pnp_key=pnp_key)
+    state = tres.state
+    kf0 = torch.clamp(last_kf, min=0)
+    kf_resident = take(state.slot_of, kf0) >= 0
+    ov = torch.where(kf_resident, mapping.frame_overlap(state, i, kf0), 0.0)
+    is_kf = tres.ok & ((last_kf < 0) | (ov < m.keyframe_overlap)
+                       | (i - last_kf >= m.keyframe_max_gap))
+    run_map = is_kf
+    if cfg.ba.cadence_floor:
+        run_map = run_map | (tres.ok & (i % cfg.ba.cadence_floor == 0))
+    if cfg.ba.warmup_frames:
+        run_map = run_map | (tres.ok & (i < cfg.ba.warmup_frames))
+    return TrackOut(state, tres.ok, tres.n_pnp_inliers, tres.n_new_points, is_kf, run_map,
+                    torch.where(is_kf, i.to(torch.int32), last_kf))
+
+
+def mapping_predicates(i, ok, is_kf, run_map, cfg: SlamConfig, run_ba: bool):
+    """(fuse, local BA, cull) predicates of the mapping block: device bools
+    from `track_step`'s tensors, or host bools from host values (the card's
+    session decides which mapping program to replay with them). Parts the
+    configuration disables are False."""
+    m = cfg.mapping
+    if cfg.ba.keyframe_only:
+        fuse, ba, cull = is_kf, run_map, is_kf
+    else:
+        fuse = ok & (i % m.fuse_every == 0) if m.fuse_every else False
+        ba = ok
+        cull = ok & (i % m.cull_every == 0) if m.cull_every else False
+    return (fuse if m.enabled else False, ba if run_ba else False,
+            cull if m.enabled else False)
+
+
+def mapping_block(state: SlamState, i: torch.Tensor, preds, cfg: SlamConfig):
+    """The mapping block under `graph.cond`, as the reference's `lax.cond`s:
+    at keyframe rate fuse -> windowed local BA -> cull, per frame local BA
+    -> fuse -> cull, each under its predicate of `mapping_predicates` (the
+    reference nests the keyframe-rate fuse and cull conds inside its
+    `run_map` cond; here they are siblings, which runs the same work since
+    a keyframe always runs the block). Returns (state, chi2_before,
+    chi2_after, n_fused, n_culled)."""
+    dev = state.poses.device
+    i = i.reshape(()).long()
+    m = cfg.mapping
+    fuse, ba, cull = preds
+    nan = torch.full((), math.nan, dtype=state.poses.dtype, device=dev)
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def _fuse(st):
+        r = mapping.fuse(st, i, radius_px=m.fuse_radius_px, max_hamming=m.fuse_max_hamming,
+                         image_wh=cfg.image_wh)
+        return r.state, r.n_associated.to(torch.int32)
+
+    def _cull(st):
+        r = mapping.cull_points(st, i, min_obs=m.cull_min_obs, grace=m.cull_grace)
+        return r[0], r[1].to(torch.int32)
+
+    def _ba(st):
+        r = local_ba.local_bundle_adjust(st, i, cfg)
+        return r.state, r.chi2_initial, r.chi2_final
+
+    def _pass(st):
+        return st, zero
+
+    n_fused = n_culled = zero
+    chi2_0 = chi2_1 = nan
+    if cfg.ba.keyframe_only and fuse is not False:
+        state, n_fused = graph.cond(fuse, _fuse, _pass, state)
+    if ba is not False:
+        state, chi2_0, chi2_1 = graph.cond(ba, _ba, lambda st: (st, nan, nan), state)
+    if not cfg.ba.keyframe_only and fuse is not False:
+        state, n_fused = graph.cond(fuse, _fuse, _pass, state)
+    if cull is not False:
+        state, n_culled = graph.cond(cull, _cull, _pass, state)
+    return state, chi2_0, chi2_1, n_fused, n_culled
+
+
+def session_step(state: SlamState, i: torch.Tensor, last_kf: torch.Tensor,
+                 pnp_key: torch.Tensor, cfg: SlamConfig,
+                 run_ba: bool) -> tuple[SlamState, StepStats]:
+    """One step for an initialized session (the reference's
+    `_session_step`): `track_step`, then `mapping_block`. `i` and `last_kf`
+    are 0-d device tensors, `pnp_key` the (2,) int64 device words of
+    `split(key)[0]` for the session's subkey `key` (`prng.key_on`)."""
+    t = track_step(state, i, last_kf, pnp_key, cfg)
+    preds = mapping_predicates(i.reshape(()).long(), t.ok, t.is_keyframe, t.run_map, cfg, run_ba)
+    state, chi2_0, chi2_1, n_fused, n_culled = mapping_block(t.state, i, preds, cfg)
+    return state, StepStats(
+        tracked=t.ok, n_inliers=t.n_inliers, n_new_points=t.n_new_points,
+        chi2_before=chi2_0, chi2_after=chi2_1, n_fused=n_fused, n_culled=n_culled,
+        is_keyframe=t.is_keyframe, last_kf=t.last_kf,
+    )
+
+
+def image_ingest(state: SlamState, img: torch.Tensor, i: torch.Tensor, slot: torch.Tensor,
+                 k: torch.Tensor, dist: torch.Tensor, cfg: SlamConfig) -> SlamState:
+    """ORB extraction (`cfg.frontend.steer_mode` is "binned" or
+    "continuous") -> keypoint undistortion (identity at zero coefficients)
+    -> state ingest into `slot`."""
+    fe = cfg.frontend
+    feats = features_mod.extract(img.to(torch.float32), n_features=fe.n_features,
+                                 n_levels=fe.n_levels, fast_threshold=fe.fast_threshold,
+                                 steer_mode=fe.steer_mode)
+    uv = cam.undistort_pixels(k, dist, feats.uv)
+    return state_mod.add_frame_features(state, i, slot, uv, feats.scale, feats.valid,
+                                        feats.desc, feats.desc_pm1, k)
+
+
+def image_session_step(state: SlamState, img: torch.Tensor, i: torch.Tensor, slot: torch.Tensor,
+                       last_kf: torch.Tensor, pnp_key: torch.Tensor, k: torch.Tensor,
+                       dist: torch.Tensor, cfg: SlamConfig,
+                       run_ba: bool) -> tuple[SlamState, StepStats]:
+    """ONE step for a tracked image (the reference's `_image_session_step`):
+    `image_ingest`, then `session_step`."""
+    state = image_ingest(state, img, i, slot, k, dist, cfg)
+    return session_step(state, i, last_kf, pnp_key, cfg, run_ba)
+
+
+def pack_step(state: SlamState, stats: StepStats, db, i: torch.Tensor, voc, lcfg):
+    """Fused loop-closure detection (with a vocabulary; `db` is updated in
+    place) and the packed int32 vector of the step's outcomes (the
+    reference's `_pack_step`). Returns (state, db, last_kf, packed)."""
+    dev = state.poses.device
+    if voc is None:
+        det = lc_mod.null_detect_out(dev)
+    else:
+        db, det = lc_mod.detect_step(voc, lcfg, db, state, i, stats.is_keyframe)
+    i32 = torch.stack([
+        stats.tracked.to(torch.int32), stats.n_inliers.to(torch.int32),
+        stats.n_new_points.to(torch.int32), stats.n_fused.to(torch.int32),
+        stats.n_culled.to(torch.int32), stats.is_keyframe.to(torch.int32),
+        stats.last_kf.to(torch.int32), det.best_j.to(torch.int32), det.n_cand.to(torch.int32),
+    ])
+    f32 = torch.stack([
+        stats.chi2_before.to(torch.float32), stats.chi2_after.to(torch.float32),
+        det.score.to(torch.float32), det.floor.to(torch.float32),
+    ])
+    return state, db, stats.last_kf, torch.cat([i32, f32.view(torch.int32)])
+
+
+class _Row:
+    """One ring row: host control words, the host image staging buffers,
+    the packed stats' host copy, the kernels' launch counters at the step's
+    start and end, the event behind them and the frame that owns it."""
+
+    def __init__(self, pin: bool):
+        self.pin = pin
+        self.ctrl = torch.zeros(_CTRL_LEN, dtype=torch.int64, pin_memory=pin)
+        self.stats = torch.zeros(PACKED_LEN, dtype=torch.int32, pin_memory=pin)
+        self.counts = torch.zeros((2, len(launches.KERNELS)), dtype=torch.int64, pin_memory=pin)
+        self.event = torch.cuda.Event() if pin else None
+        self.images: dict = {}  # (shape, dtype) -> host staging tensor
+        self.owner: FrameStats | None = None
+
+    def image(self, arr: np.ndarray) -> torch.Tensor:
+        key = (arr.shape, arr.dtype.str)
+        buf = self.images.get(key)
+        if buf is None:
+            buf = self.images[key] = torch.empty(arr.shape, dtype=torch.from_numpy(arr[:0]).dtype,
+                                                 pin_memory=self.pin)
+        buf.numpy()[...] = arr
+        return buf
 
 
 class SlamSession:
@@ -133,7 +372,9 @@ class SlamSession:
 
     With loop closing: `SlamSession(cfg, loop_closer=LoopCloser(
     vocabulary.load_default(), cfg))`. `device` defaults to the card and
-    raises without one; pass `device="cpu"` to run on the CPU.
+    raises without one; pass `device="cpu"` to run on the CPU. On a card,
+    `state` is the set of static buffers the captured step updates in
+    place: copy what you keep.
     """
 
     def __init__(self, cfg: SlamConfig = SlamConfig(), seed: int = 0,
@@ -145,15 +386,15 @@ class SlamSession:
         if loop_closer is not None and loop_closer.device != self.device:
             raise ValueError(f"loop closer on {loop_closer.device}, session on {self.device}")
         self.loop_closer = loop_closer
-        self.state: SlamState = state_mod.empty_state(cfg, self.device)
+        self._state: SlamState = state_mod.empty_state(cfg, self.device)
         self.key = prng.PRNGKey(seed)
         self.stats: list[FrameStats] = []
         self.timestamps: list[float] = []
         self._next = 0
         self._initialized = False
         self._init_ref = 0
-        self._last_kf = -1
-        self._keyframes: list[int] = []  # folded from stats (lagging with a closer)
+        self._last_kf = torch.full((), -1, dtype=torch.int32, device=self.device)
+        self._keyframes: list[int] = []  # folded from stats, `stat_lag` frames late
         self._kf_scanned = 0
         self._kf_culled: set[int] = set()
         self._kf_since_cull = 0
@@ -172,6 +413,31 @@ class SlamSession:
         self._slot_frame: list[int] = [-1] * S
         self._free_slots: list[int] = list(range(S - 1, -1, -1))
         self._protect_window = cfg.track.back_traverse + 2
+
+        cuda = self.device.type == "cuda"
+        self._use_graphs = cuda  # the captured step; cleared only by chip_smoke's A/B
+        self._ring = [_Row(pin=cuda) for _ in range(cfg.stat_lag + 1)]
+        self._ring_next = 0
+        self._programs: dict = {}  # ("track" | "map", ...) -> graph.Program
+        self._pool = None  # the programs' shared graph memory pool
+        self._capture_stream = None
+        self._io: dict = {}  # static device inputs of the programs
+        self.capture_s: dict = {}  # program key -> seconds its capture took
+        self.flag_reads = 0  # host reads of the mapping block's predicates (one a frame)
+
+    # --- the state: static device buffers on the graph route ------------------
+    @property
+    def state(self) -> SlamState:
+        return self._state
+
+    @state.setter
+    def state(self, new: SlamState) -> None:
+        if not self._use_graphs:
+            self._state = new
+            return
+        for buf, x in zip(self._state, new):
+            if x is not buf:
+                buf.copy_(x)
 
     def _split(self) -> np.ndarray:
         """The next subkey: `key, sub = split(key)`, on the host."""
@@ -210,15 +476,15 @@ class SlamSession:
     def _acquire_slot(self, i: int) -> tuple[int, int]:
         """Free slot for frame i; when none is free, evict the oldest
         non-keyframe outside the protected window, then the oldest keyframe.
-        Returns (slot, evicted frame or -1)."""
+        Returns (slot, evicted frame or -1). Keyframe flags lag by
+        `stat_lag` frames; lagging keyframes are inside the protected window
+        anyway."""
         if self._free_slots:
             slot = self._free_slots.pop()
             self._slot_frame[slot] = i
             return slot, -1
         protect_after = i - self._protect_window
-        # with a closer the flags lag by `stat_lag` frames; lagging keyframes
-        # are inside the protected window anyway
-        kfs = set(self._keyframes_known() if self.loop_closer is not None else self.keyframes)
+        kfs = set(self._keyframes_known())
         resident = sorted((f, s) for s, f in enumerate(self._slot_frame) if f >= 0)
         victim = None
         for f, s in resident:
@@ -257,50 +523,348 @@ class SlamSession:
         )
 
     def add_frame(self, img, k, timestamp: float = 0.0, dist=None) -> FrameStats:
-        """Ingest a grayscale (H, W) image in [0, 255] (numpy or tensor)."""
+        """Ingest a grayscale (H, W) image in [0, 255] (numpy or tensor).
+        Once initialized, a frame is one step (on a card, one replay); a
+        host array reaches the card through the pinned ring."""
+        if self._initialized and self._next >= 2:
+            return self._tracked("image", img, k, timestamp, dist)
         img = torch.as_tensor(img, device=self.device).to(torch.float32)
         with torch.inference_mode():
-            feats = self._extract(img)
-            if self._initialized and self._next >= 2:
-                # the reference's fused image step undistorts unconditionally
-                d = torch.zeros(5, device=self.device) if dist is None else self._k(dist)
-                feats = feats._replace(uv=cam.undistort_pixels(self._k(k), d, feats.uv))
-                return self._ingest(feats, k, timestamp)
-            return self.add_frame_features(feats, k, timestamp, dist=dist)
+            return self._ingest(self._extract(img), k, timestamp, dist)
 
     def add_frame_from_buffer(self, buffer: torch.Tensor, idx: int, k, timestamp: float = 0.0,
                               dist=None) -> FrameStats:
         """Ingest frame `idx` of an (N, H, W) uint8 or float32 image buffer
         that already lies on the session's device: the frame is sliced and
-        converted there, with no host-to-device copy of the image."""
+        converted there (inside the captured step on a card), with no
+        host-to-device copy of the image."""
         if buffer.device.type != self.device.type or buffer.dim() != 3:
             raise ValueError(f"add_frame_from_buffer takes an (N, H, W) buffer on {self.device}, "
                              f"got {tuple(buffer.shape)} on {buffer.device}")
-        return self.add_frame(buffer[idx], k, timestamp, dist=dist)
+        if self._initialized and self._next >= 2:
+            return self._tracked("buffer", buffer, k, timestamp, dist, j=idx)
+        with torch.inference_mode():
+            return self._ingest(self._extract(buffer[idx].to(torch.float32)), k, timestamp, dist)
 
-    def prewarm(self, image: bool = False, n_threads: int = 4) -> float:
-        """Pay the step's one-time costs before frame 0 and return the
-        seconds spent: on a card, K1 and K2 are built and loaded (one nvcc
-        each, in parallel; a failed build raises); with `image`, one
-        extraction of a zero image of `cfg.image_wh` in each steering mode
-        the session can use; with a loop closer, the pose graph's edge
-        Jacobians and the Sim3 RANSAC polish on tiny inputs, whose first
-        `torch.func` transforms import most of functorch, drawn from its own
-        `PRNGKey(0)` as the reference's prewarm does. The session's state,
-        key and counters are left as they were (the kernels' launch counters
-        count the warm-up extraction)."""
+    def add_frame_features(self, feats: orb.Features, k, timestamp: float,
+                           dist=None) -> FrameStats:
+        """Ingest precomputed features; `dist` (radtan 5-vector) undistorts
+        the keypoints first when nonzero."""
+        if self._initialized and self._next >= 2:
+            return self._tracked("features", feats, k, timestamp, dist)
+        with torch.inference_mode():
+            return self._ingest(feats, k, timestamp, dist)
+
+    def _ingest(self, feats: orb.Features, k, timestamp: float, dist) -> FrameStats:
+        """Frame 0 and the bootstrap attempts, eagerly."""
+        i = self._next
+        if i >= self.cfg.max_frames:
+            raise ValueError(f"frame capacity {self.cfg.max_frames} exhausted")
+        if dist is not None and np.any(np.asarray(dist) != 0):
+            feats = feats._replace(uv=cam.undistort_pixels(self._k(k), self._k(dist), feats.uv))
+        slot, prev = self._acquire_slot(i)
+        try:
+            self.state = state_mod.add_frame_features(
+                self.state, i, slot, feats.uv, feats.scale, feats.valid,
+                feats.desc, feats.desc_pm1, self._k(k),
+            )
+        except Exception:
+            self._release_slot(slot, prev)
+            raise
+        self._next += 1
+        self.timestamps.append(float(timestamp))
+        st = FrameStats(frame=i)
+        if i == 0:
+            st.tracked = True
+        else:
+            res = tracker.bootstrap(self.state, self._split(), self.cfg, self._init_ref, i)
+            self.state = res.state
+            ok, n_inl, n_pts = torch.stack([res.ok.long(), res.n_inliers.long(),
+                                            res.n_points.long()]).tolist()
+            st.tracked = bool(ok)
+            st.n_inliers = n_inl
+            st.n_new_points = n_pts
+            if st.tracked:
+                self._initialized = True
+                st.is_keyframe = True
+                self._last_kf.fill_(i)
+                if self.loop_closer is not None:
+                    # the map's first anchor must be queryable for closure
+                    self.loop_closer.insert_from_state(self.state, i)
+            elif i - self._init_ref >= self.cfg.init.max_defer:
+                self._init_ref = i - 1
+        st.last_kf = i if st.is_keyframe else -1
+        self._enqueue(st)
+        return st
+
+    # --- the tracked step ---------------------------------------------------------
+    def _acquire_row(self) -> _Row:
+        """The next ring row, after its previous frame's outcomes are read
+        (so its host buffers are no longer in flight)."""
+        row = self._ring[self._ring_next]
+        self._ring_next = (self._ring_next + 1) % len(self._ring)
+        if row.owner is not None:
+            row.owner._resolve()
+            row.owner = None
+        return row
+
+    def _ctrl_words(self, row: _Row, i: int, slot: int, j: int, k, dist) -> None:
+        pnp = prng.split(self._split())[0]
+        kd = np.zeros(9, np.float32)
+        kd[:4] = np.asarray(k.cpu() if torch.is_tensor(k) else k, np.float32).reshape(4)
+        if dist is not None:
+            kd[4:] = np.asarray(dist.cpu() if torch.is_tensor(dist) else dist,
+                                np.float32).reshape(5)
+        words = np.concatenate([[i, slot, j], pnp.astype(np.int64),
+                                kd.view(np.int32).astype(np.int64)])
+        row.ctrl.numpy()[:] = words
+
+    def _cfg_for(self, steer: str | None) -> SlamConfig:
+        if steer is None:
+            return self.cfg
+        return dataclasses.replace(self.cfg, frontend=dataclasses.replace(self.cfg.frontend,
+                                                                          steer_mode=steer))
+
+    def _closer_args(self):
+        lc = self.loop_closer
+        return (None, None, None) if lc is None else (lc._db, lc.voc, lc.lc)
+
+    @staticmethod
+    def _unpack_ctrl(ctrl: torch.Tensor):
+        """(i, slot, j, pnp_key, k, dist) device views of the control words."""
+        kd = ctrl[5:14].to(torch.int32).view(torch.float32)
+        return ctrl[0], ctrl[1], ctrl[2], ctrl[3:5], kd[:4], kd[4:]
+
+    def _ingest_step(self, path: str, steer: str | None, state, ctrl, frame):
+        """The frame's ingest (and extraction) for `path`."""
+        i, slot, j, _, k, dist = self._unpack_ctrl(ctrl)
+        if path == "features":
+            return state_mod.add_frame_features(state, i, slot, frame.uv, frame.scale,
+                                                frame.valid, frame.desc, frame.desc_pm1, k)
+        img = frame.index_select(0, j.reshape(1))[0] if path == "buffer" else frame
+        return image_ingest(state, img, i, slot, k, dist, self._cfg_for(steer))
+
+    def _static_input(self, path: str, frame):
+        """The static device tensor(s) a program reads its frame from."""
+        if path == "buffer":
+            return frame
+        if path == "image":
+            key = ("image", tuple(frame.shape))
+            if key not in self._io:
+                self._io[key] = torch.zeros(tuple(frame.shape), dtype=torch.float32,
+                                            device=self.device)
+            return self._io[key]
+        if "features" not in self._io:
+            N = self.cfg.frontend.n_features
+            d = self.device
+            self._io["features"] = orb.Features(
+                uv=torch.zeros((N, 2), device=d), desc=torch.zeros((N, 8), dtype=torch.int32,
+                                                                   device=d),
+                desc_pm1=torch.zeros((N, 256), dtype=torch.int8, device=d),
+                angle=torch.zeros(N, device=d), score=torch.zeros(N, device=d),
+                scale=torch.ones(N, device=d), valid=torch.zeros(N, dtype=torch.bool, device=d))
+        return self._io["features"]
+
+    def _io_buffers(self):
+        """The control words and the tracked part's outputs, static."""
+        if "ctrl" not in self._io:
+            d = self.device
+            self._io["ctrl"] = torch.zeros(_CTRL_LEN, dtype=torch.int64, device=d)
+            # ok, n_inliers, n_new_points, is_keyframe, run_map, last_kf
+            self._io["front"] = torch.zeros(6, dtype=torch.int32, device=d)
+            self._io["front_host"] = torch.zeros(6, dtype=torch.int32, pin_memory=True)
+            self._io["front_event"] = torch.cuda.Event()
+            self._capture_stream = torch.cuda.Stream(d)
+        return self._io["ctrl"], self._io["front"]
+
+    def _store(self, state: SlamState) -> None:
+        """Inside a capture: the step's state into the static buffers."""
+        for buf, x in zip(self._state, state):
+            if x is not buf:
+                buf.copy_(x)
+
+    def _capture(self, key, run) -> graph.Program:
+        with torch.inference_mode():
+            prog = graph.Program(run, stream=self._capture_stream, pool=self._pool)
+        if self._pool is None:
+            self._pool = prog.graph.pool()
+        self._programs[key] = prog
+        self.capture_s[key] = prog.capture_s
+        return prog
+
+    def _track_program(self, path: str, steer: str | None, frame) -> graph.Program:
+        """The tracked part of the step for (path, steering, frame layout):
+        ingest, `track_step`; the state and last keyframe go to the static
+        buffers, the flags and counts to the static `front` vector."""
+        layout = ((frame.data_ptr(), tuple(frame.shape), frame.dtype) if path == "buffer"
+                  else tuple(frame.shape) if path == "image" else None)
+        key = ("track", path, steer, layout)
+        if key in self._programs:
+            return self._programs[key]
+        ctrl, front = self._io_buffers()
+        src, static, last_kf, cfg = self._static_input(path, frame), self._state, \
+            self._last_kf, self._cfg_for(steer)
+
+        def run():
+            state = self._ingest_step(path, steer, static, ctrl, src)
+            t = track_step(state, ctrl[0], last_kf, ctrl[3:5], cfg)
+            out = torch.stack([t.ok.to(torch.int32), t.n_inliers.to(torch.int32),
+                               t.n_new_points.to(torch.int32), t.is_keyframe.to(torch.int32),
+                               t.run_map.to(torch.int32), t.last_kf.to(torch.int32)])
+            if graph.capturing():
+                self._store(t.state)
+                last_kf.copy_(t.last_kf)
+                front.copy_(out)
+            return front
+
+        return self._capture(key, run)
+
+    def _map_program(self, preds: tuple) -> graph.Program:
+        """The mapping block with its parts decided on the host (`preds`, as
+        `mapping_predicates` gives them), then detection and the packed
+        vector."""
+        key = ("map", preds, id(self.loop_closer))
+        if key in self._programs:
+            return self._programs[key]
+        ctrl, front = self._io_buffers()
+        static, cfg = self._state, self.cfg
+        db, voc, lcfg = self._closer_args()
+
+        def run():
+            i = ctrl[0]
+            state, c0, c1, n_f, n_c = mapping_block(static, i, preds, cfg)
+            stats = StepStats(tracked=front[0] != 0, n_inliers=front[1], n_new_points=front[2],
+                              chi2_before=c0, chi2_after=c1, n_fused=n_f, n_culled=n_c,
+                              is_keyframe=front[3] != 0, last_kf=front[5])
+            state, _, _, packed = pack_step(
+                state, stats, db if graph.capturing() or db is None else db.clone(), i, voc, lcfg)
+            if graph.capturing():
+                self._store(state)
+            return packed
+
+        return self._capture(key, run)
+
+    def _tracked(self, path: str, frame, k, timestamp: float, dist, j: int = 0) -> FrameStats:
+        i = self._next
+        if i >= self.cfg.max_frames:
+            raise ValueError(f"frame capacity {self.cfg.max_frames} exhausted")
+        if path == "features" and dist is not None and np.any(np.asarray(dist) != 0):
+            with torch.inference_mode():
+                frame = frame._replace(uv=cam.undistort_pixels(self._k(k), self._k(dist), frame.uv))
+            dist = None
+        steer = None if path == "features" else self._steer
+        slot, prev = self._acquire_slot(i)
+        row = self._acquire_row()
+        try:
+            self._ctrl_words(row, i, slot, j, k, dist)
+            if path == "image" and not torch.is_tensor(frame):
+                frame = row.image(np.asarray(frame))  # staged in the row's pinned buffer
+            if self.device.type == "cuda":
+                row.counts[0].copy_(launches.counters(self.device), non_blocking=True)
+            with torch.inference_mode():
+                if self._use_graphs:
+                    packed = self._replay(path, steer, frame, row, i)
+                else:
+                    packed = self._eager(path, steer, frame, row)
+        except Exception:
+            self._release_slot(slot, prev)
+            raise
+        row.stats.copy_(packed, non_blocking=True)
+        if self.device.type == "cuda":
+            row.counts[1].copy_(launches.counters(self.device), non_blocking=True)
+        if row.event is not None:
+            row.event.record()
+        self._next += 1
+        self.timestamps.append(float(timestamp))
+        st = FrameStats(frame=i)
+        st._set_host(row.stats, row.counts, row.event)
+        row.owner = st
+        self._enqueue(st)
+        return st
+
+    def _replay(self, path: str, steer, frame, row: _Row, i: int) -> torch.Tensor:
+        """One tracked frame on the card: the tracked part's program, ONE
+        host read of its flags (the mapping block's predicates), then the
+        matching mapping program."""
+        ctrl, _ = self._io_buffers()
+        prog = self._track_program(path, steer, frame)
+        ctrl.copy_(row.ctrl, non_blocking=True)
+        if path == "image":
+            self._static_input(path, frame).copy_(frame, non_blocking=True)
+        elif path == "features":
+            for buf, x in zip(self._static_input(path, frame), frame):
+                buf.copy_(x, non_blocking=True)
+        front = prog.replay()
+        host, ev = self._io["front_host"], self._io["front_event"]
+        host.copy_(front, non_blocking=True)
+        ev.record()
+        ev.synchronize()
+        self.flag_reads += 1
+        ok, _, _, is_kf, run_map, _ = (bool(x) for x in host.numpy())
+        preds = mapping_predicates(i, ok, is_kf, run_map, self.cfg, self.run_ba)
+        return self._map_program(tuple(bool(p) for p in preds)).replay()
+
+    def _eager(self, path: str, steer, frame, row: _Row) -> torch.Tensor:
+        """The same step run op by op (the CPU, and the card's A/B)."""
+        ctrl = row.ctrl.to(self.device, copy=True)  # the row is reused
+        if path == "image":
+            frame = frame.to(self.device)
+        i, _, _, pnp_key, _, _ = self._unpack_ctrl(ctrl)
+        state = self._ingest_step(path, steer, self.state, ctrl, frame)
+        state, stats = session_step(state, i, self._last_kf, pnp_key, self._cfg_for(steer),
+                                    self.run_ba)
+        db, voc, lcfg = self._closer_args()
+        state, _, last_kf, packed = pack_step(state, stats, db, i, voc, lcfg)
+        self.state = state
+        self._last_kf = last_kf
+        return packed
+
+    def prewarm(self, image: bool = False, n_threads: int = 4, buffer=None,
+                image_hw: tuple | None = None) -> float:
+        """Pay the one-time costs before frame 0 and return the seconds
+        spent: on a card, K1, K2 and K3 are built and loaded (one nvcc each,
+        in parallel; a failed build raises), and the programs of a tracked
+        frame are captured: the tracked part for features, or with `image`
+        for an `image_hw` (default: `cfg.image_wh`) image in each steering
+        mode the session can use, or with `buffer` for frames of that device buffer
+        (`add_frame_from_buffer`), and the mapping programs a keyframe-rate
+        session replays (the reference compiles its step programs in its
+        prewarm); on the CPU,
+        with `image`, one extraction of a zero image in each mode. With a
+        loop closer, the pose graph's edge Jacobians and the Sim3 RANSAC
+        polish run on tiny inputs, whose first `torch.func` transforms
+        import most of functorch, drawn from their own `PRNGKey(0)` as the
+        reference's prewarm does. The session's state, key and counters are
+        left as they were (the kernels count the captures' warm-up runs on
+        the card: `ops/launches.reset()` after `prewarm` counts frames
+        only)."""
         t0 = time.perf_counter()
         dev = self.device
+        modes = ("binned", "continuous") if self._auto_steer else (self._steer,)
+        H, W = image_hw or self.cfg.image_wh[::-1]
         if dev.type == "cuda":
             with ThreadPoolExecutor(n_threads) as ex:
-                for f in [ex.submit(fast_score.load), ex.submit(hamming.load)]:
+                for f in [ex.submit(m.load) for m in (fast_score, hamming, small_eigh)]:
                     f.result()
-        with torch.inference_mode():
+        if self._use_graphs:
             if image:
-                W, H = self.cfg.image_wh
+                zero = torch.zeros((H, W), dtype=torch.float32, device=dev)
+                for mode in modes:
+                    self._track_program("image", mode, zero)
+            if buffer is not None:
+                for mode in modes:
+                    self._track_program("buffer", mode, buffer)
+            if not image and buffer is None:
+                self._track_program("features", None, self._static_input("features", None))
+            if self.cfg.ba.keyframe_only:
+                for kf, run_map in ((True, True), (False, True), (False, False)):
+                    preds = mapping_predicates(0, True, kf, run_map, self.cfg, self.run_ba)
+                    self._map_program(tuple(bool(p) for p in preds))
+        with torch.inference_mode():
+            if image and not self._use_graphs:
                 zero = torch.zeros((H, W), dtype=torch.float32, device=dev)
                 fe = self.cfg.frontend
-                for mode in (("binned", "continuous") if self._auto_steer else (self._steer,)):
+                for mode in modes:
                     features_mod.extract(zero, n_features=fe.n_features, n_levels=fe.n_levels,
                                          fast_threshold=fe.fast_threshold, steer_mode=mode)
             if self.loop_closer is not None:
@@ -317,123 +881,9 @@ class SlamSession:
             torch.cuda.synchronize(dev)
         return time.perf_counter() - t0
 
-    def add_frame_features(self, feats: orb.Features, k, timestamp: float,
-                           dist=None) -> FrameStats:
-        """Ingest precomputed features; `dist` (radtan 5-vector) undistorts
-        the keypoints first when nonzero."""
-        with torch.inference_mode():
-            if dist is not None and np.any(np.asarray(dist) != 0):
-                feats = feats._replace(uv=cam.undistort_pixels(self._k(k), self._k(dist), feats.uv))
-            return self._ingest(feats, k, timestamp)
-
-    def _ingest(self, feats: orb.Features, k, timestamp: float) -> FrameStats:
-        i = self._next
-        if i >= self.cfg.max_frames:
-            raise ValueError(f"frame capacity {self.cfg.max_frames} exhausted")
-        slot, prev = self._acquire_slot(i)
-        try:
-            self.state = state_mod.add_frame_features(
-                self.state, i, slot, feats.uv, feats.scale, feats.valid,
-                feats.desc, feats.desc_pm1, self._k(k),
-            )
-        except Exception:
-            self._release_slot(slot, prev)
-            raise
-        self._next += 1
-        self.timestamps.append(float(timestamp))
-        st = FrameStats(frame=i)
-        if i == 0:
-            st.tracked = True
-        elif not self._initialized:
-            res = tracker.bootstrap(self.state, self._split(), self.cfg, self._init_ref, i)
-            self.state = res.state
-            ok, n_inl, n_pts = torch.stack([res.ok.long(), res.n_inliers.long(),
-                                            res.n_points.long()]).tolist()
-            st.tracked = bool(ok)
-            st.n_inliers = n_inl
-            st.n_new_points = n_pts
-            if st.tracked:
-                self._initialized = True
-                st.is_keyframe = True
-                self._last_kf = i
-                if self.loop_closer is not None:
-                    # the map's first anchor must be queryable for closure
-                    self.loop_closer.insert_from_state(self.state, i)
-            elif i - self._init_ref >= self.cfg.init.max_defer:
-                self._init_ref = i - 1
-        else:
-            self._step(i, st)
-        st.last_kf = self._last_kf
-        self._enqueue(st)
-        return st
-
-    def _step(self, i: int, st: FrameStats) -> None:
-        """Track frame i, apply the keyframe rule and, when due, the mapping
-        block. One host pull per frame."""
-        cfg = self.cfg
-        m = cfg.mapping
-        tres = tracker.track(self.state, i, self._split(), cfg)
-        self.state = tres.state
-        last_kf = self._last_kf
-        kf0 = max(last_kf, 0)
-        kf_resident = self.state.slot_of[kf0] >= 0
-        ov = torch.where(kf_resident, mapping.frame_overlap(self.state, i, kf0), 0.0)
-        is_kf = tres.ok & ((last_kf < 0) | (ov < m.keyframe_overlap)
-                           | (i - last_kf >= m.keyframe_max_gap))
-        run_map = is_kf if cfg.ba.keyframe_only else tres.ok
-        if cfg.ba.keyframe_only and cfg.ba.cadence_floor:
-            run_map = run_map | (tres.ok & (i % cfg.ba.cadence_floor == 0))
-        if cfg.ba.keyframe_only and cfg.ba.warmup_frames:
-            run_map = run_map | (tres.ok & (i < cfg.ba.warmup_frames))
-        ok, is_kf, run_map, n_inl, n_new = torch.stack([
-            tres.ok.long(), is_kf.long(), run_map.long(),
-            tres.n_pnp_inliers.long(), tres.n_new_points.long(),
-        ]).tolist()
-        st.tracked, st.is_keyframe = bool(ok), bool(is_kf)
-        st.n_inliers, st.n_new_points = n_inl, n_new
-        if is_kf:
-            self._last_kf = i
-
-        if run_map:
-            self._map_block(i, st, bool(is_kf))
-        lc = self.loop_closer
-        if lc is not None:
-            _, det = lc_mod.detect_step(lc.voc, lc.lc, lc._db, self.state, i, bool(is_kf))
-            st._set_detect(det)
-
-    def _map_block(self, i: int, st: FrameStats, is_kf: bool) -> None:
-        """Fuse, windowed local BA (with `run_ba`) and point cull of frame i.
-        At keyframe rate, fuse -> BA -> cull, fusing and culling on keyframe
-        blocks only (the reference's LocalMapping cadence; floor and warmup
-        blocks solve alone); per frame, BA, then fuse every `fuse_every` and
-        cull every `cull_every` frames."""
-        cfg = self.cfg
-        m = cfg.mapping
-        per_frame = not cfg.ba.keyframe_only
-        fuse = m.enabled and (bool(m.fuse_every) and i % m.fuse_every == 0 if per_frame else is_kf)
-        cull = m.enabled and (bool(m.cull_every) and i % m.cull_every == 0 if per_frame else is_kf)
-
-        def do_fuse():
-            r = mapping.fuse(self.state, i, radius_px=m.fuse_radius_px,
-                             max_hamming=m.fuse_max_hamming, image_wh=cfg.image_wh)
-            self.state, st.n_fused = r.state, r.n_associated
-
-        if fuse and not per_frame:
-            do_fuse()
-        if self.run_ba:
-            r = local_ba.local_bundle_adjust(self.state, i, cfg)
-            self.state, st.chi2_before, st.chi2_after = r.state, r.chi2_initial, r.chi2_final
-        if fuse and per_frame:
-            do_fuse()
-        if cull:
-            self.state, st.n_culled = mapping.cull_points(
-                self.state, i, min_obs=m.cull_min_obs, grace=m.cull_grace)
-
     # --- lagged host processing: closures, relocalization, FrameCulling ----------
     def _enqueue(self, st: FrameStats) -> None:
         self.stats.append(st)
-        if self.loop_closer is None and not self._auto_steer:
-            return
         self._pending.append(st)
         self._drain(force=False)
 
@@ -448,6 +898,7 @@ class SlamSession:
 
     def _process_stat(self, st: FrameStats) -> None:
         i = st.frame
+        st._resolve()
         self._fold_kf_upto(i + 1)
         if self._auto_steer:
             self._update_steer_health(st)
@@ -473,8 +924,9 @@ class SlamSession:
             # the graph spans every ever-promoted keyframe: culled ones keep
             # their poses and stay valid vertices
             with torch.inference_mode():
-                self.state, closed = lc.close(self.state, i, j, self._split(),
-                                              keyframes=list(self._keyframes))
+                new, closed = lc.close(self.state, i, j, self._split(),
+                                       keyframes=list(self._keyframes))
+                self.state = new
             st.loop_closed = closed
 
     def _try_relocalize(self) -> None:
@@ -562,6 +1014,12 @@ class SlamSession:
 
     # --- outputs ---------------------------------------------------------------
     @property
+    def step_launches(self) -> list[dict]:
+        """Each tracked step's kernel launches as the card counted them
+        (`FrameStats.launches`; all 0 on the CPU), in frame order."""
+        return [st.launches for st in self.stats if st.launches is not None]
+
+    @property
     def keyframes(self) -> list[int]:
         """Live keyframes (FrameCulling victims excluded); processes pending
         outcomes first."""
@@ -588,4 +1046,3 @@ class SlamSession:
     @property
     def n_map_points(self) -> int:
         return int(self.state.n_points)
-

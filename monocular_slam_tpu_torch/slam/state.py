@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from monocular_slam_tpu_torch.slam.config import SlamConfig
-from monocular_slam_tpu_torch.utils.scatter import set_last
+from monocular_slam_tpu_torch.utils.scatter import index1, set_last
 
 
 class SlamState(NamedTuple):
@@ -118,26 +118,22 @@ def slot_index(state: SlamState, frame_idx) -> torch.Tensor:
     return torch.clamp(s, min=0).long()
 
 
-def add_frame_features(state: SlamState, frame_idx: int, slot_idx: int, uv, scale,
+def add_frame_features(state: SlamState, frame_idx, slot_idx, uv, scale,
                        valid, desc, desc_pm1, k) -> SlamState:
     """Write one frame's features into slot `slot_idx`, evicting the slot's
-    previous occupant from the frame->slot map."""
+    previous occupant from the frame->slot map. `frame_idx` and `slot_idx`
+    are host ints or 0-d device tensors."""
     dtype = state.kp_uv.dtype
     dev = state.kp_uv.device
-    old_frame = state.frame_of[slot_idx : slot_idx + 1].long()
+    fi, si = index1(frame_idx, dev), index1(slot_idx, dev)
+    old_frame = state.frame_of.index_select(0, si).long()
     slot_of = set_last(state.slot_of, old_frame, -1, keep=old_frame >= 0)
-    slot_of = slot_of.clone()
-    slot_of[frame_idx] = slot_idx
 
     def put(x, v):
-        x = x.clone()
-        x[slot_idx] = v
-        return x
+        if not torch.is_tensor(v):
+            v = torch.full(x.shape[1:], v, dtype=x.dtype, device=dev)
+        return x.index_copy(0, si, v.to(x.dtype)[None])
 
-    k_new = state.k.clone()
-    k_new[frame_idx] = torch.as_tensor(k, dtype=dtype, device=dev)
-    frame_of = state.frame_of.clone()
-    frame_of[slot_idx] = frame_idx
     return state._replace(
         kp_uv=put(state.kp_uv, uv.to(dtype)),
         kp_scale=put(state.kp_scale, scale.to(dtype)),
@@ -145,10 +141,10 @@ def add_frame_features(state: SlamState, frame_idx: int, slot_idx: int, uv, scal
         desc=put(state.desc, desc),
         desc_pm1=put(state.desc_pm1, desc_pm1),
         feat_point=put(state.feat_point, -1),
-        slot_of=slot_of,
-        frame_of=frame_of,
-        k=k_new,
-        n_frames=torch.clamp(state.n_frames, min=frame_idx + 1),
+        slot_of=slot_of.index_copy(0, fi, si.to(slot_of.dtype)),
+        frame_of=state.frame_of.index_copy(0, si, fi.to(state.frame_of.dtype)),
+        k=state.k.index_copy(0, fi, torch.as_tensor(k, dtype=dtype, device=dev)[None]),
+        n_frames=torch.maximum(state.n_frames, (fi[0] + 1).to(state.n_frames.dtype)),
     )
 
 

@@ -2,11 +2,14 @@
 and relocalization (counterpart of `bootstrap`, `track`, `relocalize` and
 their helpers in `monocular_slam_tpu/slam/tracker.py`).
 
-Frame ids `i`, `f0`, `f1` are host ints (the session knows them); every
-quantity derived from the state stays on the device, and a failed step
-returns the input state through `state.select`. Each step takes the
-reference's host key (`utils/prng.py`) and draws what the reference draws
-from it; `u` takes the RANSAC uniforms themselves in place of the key.
+Frame ids `f0`, `f1`, `cand` are host ints (the session knows them); the
+tracked frame `i` of `track` is a host int or a 0-d device tensor (the
+captured step reads it from a device buffer). Every quantity derived from
+the state stays on the device, and a failed step returns the input state
+through `state.select`. Each step takes the reference's host key
+(`utils/prng.py`) and draws what the reference draws from it; `track` also
+takes the PnP key it would split off as device words (`pnp_key`), and `u`
+takes the RANSAC uniforms themselves in place of the key.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from monocular_slam_tpu_torch.slam.config import SlamConfig
 from monocular_slam_tpu_torch.slam.state import SlamState
 from monocular_slam_tpu_torch.utils import prng
 from monocular_slam_tpu_torch.utils.scatter import (
-    mark, put, segment_min, set_last, set_last_2d, take, topk_stable,
+    index1, mark, put, segment_min, set_last, set_last_2d, take, topk_stable,
 )
 
 
@@ -176,7 +179,7 @@ class TrackResult(NamedTuple):
     n_new_points: torch.Tensor
 
 
-def _window_frames(state: SlamState, i: int, cfg: SlamConfig):
+def _window_frames(state: SlamState, i, cfg: SlamConfig):
     """(B,) the B most recent tracked, slot-resident frames before i,
     newest first, and their validity."""
     B = cfg.track.back_traverse
@@ -187,7 +190,7 @@ def _window_frames(state: SlamState, i: int, cfg: SlamConfig):
     return torch.clamp(js, min=0).long(), js >= 0
 
 
-def _window_matches(state: SlamState, i: int, cfg: SlamConfig, use_kernel: bool | None = None):
+def _window_matches(state: SlamState, i, cfg: SlamConfig, use_kernel: bool | None = None):
     """Frame i matched against each frame of its back-traverse window, as
     one batched match: idx/ok (B, N). On the card that is K2 in two
     launches; `use_kernel` forces a route (`matching.match`)."""
@@ -206,7 +209,7 @@ def _window_matches(state: SlamState, i: int, cfg: SlamConfig, use_kernel: bool 
     return js_safe, js_ok, m
 
 
-def _local_map_slab(state: SlamState, i: int, cfg: SlamConfig):
+def _local_map_slab(state: SlamState, i, cfg: SlamConfig):
     """The map points seen by the back-traverse window plus the most
     covisible older resident frames, compacted into an (L,) slab with one
     representative descriptor each (its observation in the most recent
@@ -267,14 +270,14 @@ def _local_map_slab(state: SlamState, i: int, cfg: SlamConfig):
     return slab_pid, slab_used & has_desc, desc_l
 
 
-def _project_associate(state: SlamState, i: int, T, fp_i, slab_pid, usable, desc_l,
+def _project_associate(state: SlamState, i, T, fp_i, slab_pid, usable, desc_l,
                        radius_px: float, cfg: SlamConfig):
     """For each still-free feature of frame i, adopt the best descriptor
     match among slab points projecting within `radius_px` under pose T.
     Returns (fp_i', adopt (N,))."""
     tcfg = cfg.track
     Xc = se3.apply(T, state.points[slab_pid])
-    uv_l = cam.project(state.k[i], Xc)
+    uv_l = cam.project(take(state.k, i), Xc)
     W, H = cfg.image_wh
     vis = usable & (Xc[:, 2] > tcfg.min_depth) & cam.in_image(uv_l, W, H)
     si = state_mod.slot_index(state, i)
@@ -288,30 +291,35 @@ def _project_associate(state: SlamState, i: int, T, fp_i, slab_pid, usable, desc
     return torch.where(adopt, slab_pid[best].to(fp_i.dtype), fp_i), adopt
 
 
-def _predict_pose(state: SlamState, i: int) -> torch.Tensor:
+def _predict_pose(state: SlamState, i) -> torch.Tensor:
     """Constant-velocity prediction from the previous two poses, anchored on
     the most recent valid pose."""
     F = state.poses.shape[0]
-    iprev, ipp = max(i - 1, 0), max(i - 2, 0)
-    ok_vel = state.pose_valid[iprev] & state.pose_valid[ipp] & (i >= 2)
-    delta = se3.compose(state.poses[iprev], se3.inverse(state.poses[ipp]))
-    delta = torch.where(ok_vel, delta, se3.identity(state.poses.dtype, device=state.poses.device))
-    idx = torch.arange(F, device=state.poses.device)
+    dev = state.poses.device
+    i = index1(i, dev)[0]
+    iprev, ipp = torch.clamp(i - 1, min=0), torch.clamp(i - 2, min=0)
+    ok_vel = take(state.pose_valid, iprev) & take(state.pose_valid, ipp) & (i >= 2)
+    delta = se3.compose(take(state.poses, iprev), se3.inverse(take(state.poses, ipp)))
+    delta = torch.where(ok_vel, delta, se3.identity(state.poses.dtype, device=dev))
+    idx = torch.arange(F, device=dev)
     jlast = torch.argmax(torch.where(state.pose_valid & (idx < i), idx, -1))
-    base = torch.where(state.pose_valid[iprev], state.poses[iprev], take(state.poses, jlast))
+    base = torch.where(take(state.pose_valid, iprev), take(state.poses, iprev),
+                       take(state.poses, jlast))
     return se3.compose(delta, base)
 
 
-def track(state: SlamState, i: int, key, cfg: SlamConfig, u=None) -> TrackResult:
-    """PnP tracking of frame i + new-point triangulation. PnP draws from
-    the first half of `split(key)`, as in the reference; `u`: the
-    (pnp_iters, N) PnP-RANSAC uniforms in place of `key`."""
+def track(state: SlamState, i, key, cfg: SlamConfig, u=None, pnp_key=None) -> TrackResult:
+    """PnP tracking of frame i (a host int or a 0-d device tensor) +
+    new-point triangulation. PnP draws from the first half of
+    `split(key)`, as in the reference; `pnp_key`: that half's words as a
+    (2,) int64 device tensor (`prng.key_on`), in place of `key`; `u`: the
+    (pnp_iters, N) PnP-RANSAC uniforms in place of either."""
     N = state.feat_point.shape[1]
     dtype = state.kp_uv.dtype
     si = state_mod.slot_index(state, i)
     uv_i = take(state.kp_uv, si)
     kv_i = take(state.kp_valid, si)
-    k_i = state.k[i]
+    k_i = take(state.k, i)
     js_safe, js_ok, m = _window_matches(state, i, cfg)
     sjs = state_mod.slot_index(state, js_safe)
     midx = m.idx.long()
@@ -332,7 +340,7 @@ def track(state: SlamState, i: int, key, cfg: SlamConfig, u=None) -> TrackResult
                                     cfg.track.predict_radius_px, cfg)
 
     Xmap = state.points[torch.clamp(pid, min=0).long()]
-    k_pnp = None if key is None else prng.split(key)[0]
+    k_pnp = pnp_key if pnp_key is not None or key is None else prng.split(key)[0]
     pres = pnp.solve_pnp_ransac(
         k_pnp, Xmap, uv_i, k_i, (pid >= 0) & kv_i,
         n_iters=cfg.track.pnp_iters, px_thresh=cfg.track.pnp_px_thresh,
@@ -397,10 +405,8 @@ def track(state: SlamState, i: int, key, cfg: SlamConfig, u=None) -> TrackResult
     feat_point = set_last_2d(new_state.feat_point, s_new, prev_feat, slot_ids,
                              keep=slot_ids >= 0)
     feat_point = put(feat_point, si, fp_i)
-    poses = new_state.poses.clone()
-    poses[i] = T_i
-    pose_valid = new_state.pose_valid.clone()
-    pose_valid[i] = ok
-    new_state = new_state._replace(poses=poses, pose_valid=pose_valid, feat_point=feat_point)
+    new_state = new_state._replace(poses=put(new_state.poses, i, T_i),
+                                   pose_valid=put(new_state.pose_valid, i, ok),
+                                   feat_point=feat_point)
     final = state_mod.select(ok, new_state, state)
     return TrackResult(final, ok, n_inliers, (slot_ids >= 0).sum())

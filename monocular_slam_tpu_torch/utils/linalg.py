@@ -1,7 +1,8 @@
 """Small-matrix linear algebra (counterpart of `monocular_slam_tpu/utils/linalg.py`).
 
 `nullspace_vector("inv_iter")` keeps the reference's shifted inverse power
-iteration for RANSAC hypothesis batches; "eigh" is the exact path. The
+iteration for RANSAC hypothesis batches; "eigh" is the exact path, through
+K3 (`ops/small_eigh.py`) on a card and `torch.linalg.eigh` on the CPU. The
 `_ex` factorizations are used where torch offers them, because their plain
 forms check `info` with a host sync on CUDA.
 """
@@ -9,6 +10,8 @@ forms check `info` with a host sync on CUDA.
 from __future__ import annotations
 
 import torch
+
+from monocular_slam_tpu_torch.ops import small_eigh
 
 
 def gram(A: torch.Tensor) -> torch.Tensor:
@@ -41,7 +44,7 @@ def smallest_eigvec_psd(A: torch.Tensor, iters: int = 8) -> torch.Tensor:
 def nullspace_vector(A: torch.Tensor, method: str = "eigh", iters: int = 8) -> torch.Tensor:
     """Unit vector minimizing |A x| given the normal matrix A (..., n, n)."""
     if method == "eigh":
-        _, V = torch.linalg.eigh(A)
+        _, V = small_eigh.eigh(A)
         return V[..., :, 0]
     return smallest_eigvec_psd(A, iters=iters)
 
@@ -55,6 +58,13 @@ def polar_orthogonalize(M: torch.Tensor, iters: int = 4) -> torch.Tensor:
         Xinv, _ = torch.linalg.inv_ex(X)
         X = 0.5 * (X + Xinv.transpose(-1, -2))
     return X
+
+
+def det3x3(M: torch.Tensor) -> torch.Tensor:
+    """Closed-form determinant of batched 3x3 matrices."""
+    return (M[..., 0, 0] * (M[..., 1, 1] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 1])
+            - M[..., 0, 1] * (M[..., 1, 0] * M[..., 2, 2] - M[..., 1, 2] * M[..., 2, 0])
+            + M[..., 0, 2] * (M[..., 1, 0] * M[..., 2, 1] - M[..., 1, 1] * M[..., 2, 0]))
 
 
 def inv3x3(M: torch.Tensor) -> torch.Tensor:

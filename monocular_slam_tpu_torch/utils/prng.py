@@ -30,7 +30,11 @@ on the host (torch's uint32 support is thin). `bits_on` and `uniform_on` are
 the same hash in torch int64 ops (uint32 words held in int64, masked after
 every add and shift) on a tensor device, bit for bit with 32-bit
 `random_bits` and float32 `uniform`: the session's RANSAC draws are made
-there, from a key that stays on the host.
+there. Their key is a host (2,) uint32 key, or the same two words as a
+(2,) int64 tensor on the device (`key_on`): the captured step reads its
+key from a device buffer that the host refills before each replay, so the
+key is an operand of the graph and not a constant baked into it. Both
+routes give the same bits.
 """
 
 from __future__ import annotations
@@ -130,8 +134,9 @@ def uniform(key: np.ndarray, shape=(), dtype=np.float32, minval=0.0, maxval=1.0)
 _M32 = 0xFFFFFFFF
 
 
-def _threefry2x32_on(k1: int, k2: int, x1: torch.Tensor, x2: torch.Tensor):
-    """`threefry2x32` on int64 tensors holding uint32 words."""
+def _threefry2x32_on(k1, k2, x1: torch.Tensor, x2: torch.Tensor):
+    """`threefry2x32` on int64 tensors holding uint32 words; the key words
+    are Python ints or 0-d int64 tensors on the counters' device."""
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     x1 = (x1 + ks[0]) & _M32
     x2 = (x2 + ks[1]) & _M32
@@ -144,27 +149,40 @@ def _threefry2x32_on(k1: int, k2: int, x1: torch.Tensor, x2: torch.Tensor):
     return x1, x2
 
 
-def _hash_iota_on(key: np.ndarray, shape, device):
-    key = np.asarray(key, _U32)
+def key_on(key, device) -> torch.Tensor:
+    """A host (2,) uint32 key as the (2,) int64 device tensor of its words."""
+    return torch.as_tensor(np.asarray(key, _U32).astype(np.int64), device=device)
+
+
+def _hash_iota_on(key, shape, device):
     idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device).reshape(shape)
-    return _threefry2x32_on(int(key[0]), int(key[1]), idx >> 32, idx & _M32)
+    if torch.is_tensor(key):
+        if key.shape != (2,) or key.dtype != torch.int64 or key.device != idx.device:
+            raise ValueError(f"a device key is a (2,) int64 tensor on {idx.device}, got "
+                             f"{tuple(key.shape)} {key.dtype} on {key.device}")
+        k1, k2 = key.unbind(0)
+    else:
+        key = np.asarray(key, _U32)
+        k1, k2 = int(key[0]), int(key[1])
+    return _threefry2x32_on(k1, k2, idx >> 32, idx & _M32)
 
 
-def bits_on(key: np.ndarray, shape, device) -> torch.Tensor:
+def bits_on(key, shape, device) -> torch.Tensor:
     """`random_bits(key, 32, shape)` made on `device`, as int64 holding the
-    uint32 bits. `key` is a host (2,) uint32 key."""
+    uint32 bits. `key` is a host (2,) uint32 key or its device words
+    (`key_on`)."""
     b1, b2 = _hash_iota_on(key, tuple(shape), device)
     return b1 ^ b2
 
 
-def uniform_on(key: np.ndarray, shape, device, minval: float = 0.0,
+def uniform_on(key, shape, device, minval: float = 0.0,
                maxval: float = 1.0) -> torch.Tensor:
     """float32 `uniform(key, shape, minval=minval, maxval=maxval)` made on
-    `device`, bit for bit."""
+    `device`, bit for bit; `key` as in `bits_on`."""
     mant = (bits_on(key, shape, device) >> 9) | 0x3F800000
     floats = mant.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=device)
-    span = torch.tensor(maxval, dtype=torch.float32, device=device) - lo
+    lo = torch.full((), minval, dtype=torch.float32, device=device)
+    span = torch.full((), maxval, dtype=torch.float32, device=device) - lo
     scaled = (floats.double() * span.double() + lo.double()).float()
     return torch.maximum(lo, scaled)
 

@@ -124,15 +124,28 @@ def topk_stable(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    """x[i] along dim 0 for a 0-d device index, without a host sync."""
-    return x.index_select(0, i.reshape(1).long())[0]
+def index1(i, device) -> torch.Tensor:
+    """(1,) int64 index on `device` from a host int or a 0-d tensor (a
+    frame id the captured step reads from a device buffer)."""
+    if torch.is_tensor(i):
+        return i.reshape(1).long()
+    return torch.full((1,), int(i), dtype=torch.long, device=device)
 
 
-def put(x: torch.Tensor, i: torch.Tensor, v) -> torch.Tensor:
-    """New tensor: x with row i (0-d device index) replaced by v."""
-    v = torch.as_tensor(v, dtype=x.dtype, device=x.device).expand(x.shape[1:])
-    return x.index_copy(0, i.reshape(1).long(), v[None])
+def take(x: torch.Tensor, i) -> torch.Tensor:
+    """x[i] along dim 0 for a 0-d device index (or a host int), without a
+    host sync."""
+    return x.index_select(0, index1(i, x.device))[0]
+
+
+def put(x: torch.Tensor, i, v) -> torch.Tensor:
+    """New tensor: x with row i (0-d device index or host int) replaced by
+    v."""
+    if torch.is_tensor(v):
+        v = v.to(dtype=x.dtype, device=x.device).expand(x.shape[1:])
+    else:
+        v = torch.full(x.shape[1:], v, dtype=x.dtype, device=x.device)
+    return x.index_copy(0, index1(i, x.device), v[None])
 
 
 def mark(n: int, idx: torch.Tensor, keep=None) -> torch.Tensor:

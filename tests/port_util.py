@@ -7,11 +7,15 @@ JAX reference and to the port; outputs come back as numpy arrays.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import traceback
 
 import numpy as np
 import pytest
 import torch
+from torch.overrides import TorchFunctionMode
+from torch.utils._python_dispatch import TorchDispatchMode
 
 # the rendered course of `tests/test_render_e2e.py`: key 3, 12 frames, 320x240
 COURSE_KEY = 3
@@ -292,3 +296,108 @@ def multihost_rank() -> None:
         "mesh_model": mesh.size(1), "multi": multi, "chi2_initial": float(res.chi2_initial),
         "chi2_final": float(res.chi2_history[-1])}), flush=True)
     torch.distributed.destroy_process_group()
+
+
+# --- the host-sync checker of the step's CPU tests --------------------------------
+# Under `sync_audit()`, every operation that would read a device value on the
+# host, or copy host data to the device, in a CUDA run (`.item()`, `bool()`,
+# `.tolist()`, `torch.tensor`, indexing with a 0-d tensor or a boolean mask,
+# `nonzero`, `torch.linalg.eigh`, ...) raises, so a CPU test can show that a
+# function has no host round trip and can be captured into a CUDA graph.
+
+_HOST_READS = {
+    torch.Tensor.item, torch.Tensor.tolist, torch.Tensor.numpy, torch.Tensor.cpu,
+    torch.Tensor.__bool__, torch.Tensor.__int__, torch.Tensor.__float__,
+    torch.Tensor.__index__,
+}
+_SYNC_OPS = {
+    "aten._local_scalar_dense", "aten.lift_fresh", "aten.nonzero", "aten.masked_select",
+    "aten.masked_scatter", "aten.masked_scatter_", "aten._unique", "aten._unique2",
+    "aten.unique_dim", "aten.unique_consecutive", "aten.bincount", "aten.histc",
+    "aten.is_nonzero", "aten.equal", "aten.allclose", "aten.linalg_eigh", "aten._linalg_eigh",
+    "aten.linalg_eig", "aten.linalg_svd", "aten._linalg_svd", "aten.linalg_svdvals", "aten.linalg_cholesky",
+    "aten.linalg_inv", "aten.linalg_solve", "aten.cholesky", "aten.inverse",
+}
+_CHECK_ERRORS_OPS = {
+    "aten.linalg_cholesky_ex", "aten.linalg_inv_ex", "aten._linalg_solve_ex",
+    "aten.linalg_lu_factor_ex", "aten.linalg_ldl_factor_ex",
+}
+
+
+class HostSyncError(RuntimeError):
+    pass
+
+
+def _where() -> str:
+    for fr in reversed(traceback.extract_stack()[:-3]):
+        if "monocular_slam_tpu_torch" in fr.filename and not fr.filename.endswith("graph.py"):
+            return f"{fr.filename.split('monocular_slam_tpu_torch/')[-1]}:{fr.lineno}"
+    return "?"
+
+
+class _Audit:
+    def __init__(self, raise_on_sync: bool):
+        self.raise_on_sync = raise_on_sync
+        self.events: list[tuple[str, str]] = []
+        self.scalar_store = 0
+
+    def hit(self, what: str):
+        ev = (what, _where())
+        self.events.append(ev)
+        if self.raise_on_sync:
+            raise HostSyncError(f"{what} at {ev[1]} would synchronise with the host on a card")
+
+
+class _FnMode(TorchFunctionMode):
+    def __init__(self, audit: _Audit):
+        super().__init__()
+        self.audit = audit
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func in _HOST_READS:
+            self.audit.hit(f"Tensor.{func.__name__}")
+        if func is torch.Tensor.__setitem__ and not torch.is_tensor(args[2]):
+            # a Python number stored by indexing: on a card it becomes a
+            # device scalar tensor (a fill), not a host-to-device copy
+            self.audit.scalar_store += 1
+            try:
+                return func(*args, **(kwargs or {}))
+            finally:
+                self.audit.scalar_store -= 1
+        return func(*args, **(kwargs or {}))
+
+
+class _DispatchMode(TorchDispatchMode):
+    def __init__(self, audit: _Audit):
+        super().__init__()
+        self.audit = audit
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = str(func.overloadpacket) if hasattr(func, "overloadpacket") else str(func)
+        if name == "aten.lift_fresh" and self.audit.scalar_store:
+            pass
+        elif name in _SYNC_OPS:
+            self.audit.hit(name)
+        elif name in _CHECK_ERRORS_OPS and kwargs.get("check_errors", False):
+            self.audit.hit(f"{name}(check_errors=True)")
+        elif name == "aten.segment_reduce" and not kwargs.get("unsafe", False):
+            self.audit.hit("aten.segment_reduce(unsafe=False)")
+        elif name == "aten.repeat_interleave" and torch.is_tensor(args[0]) and \
+                kwargs.get("output_size") is None and len(args) == 1:
+            self.audit.hit("aten.repeat_interleave(repeats tensor)")
+        elif name in ("aten.index", "aten.index_put", "aten.index_put_", "aten._index_put_impl_"):
+            idx = args[1] if len(args) > 1 else kwargs.get("indices", ())
+            if any(t is not None and t.dtype in (torch.bool, torch.uint8) for t in idx):
+                self.audit.hit(f"{name} with a boolean mask")
+        return func(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def sync_audit(raise_on_sync: bool = True):
+    """Within: any operation that would synchronise a CUDA run with the host
+    raises `HostSyncError` naming the port's source line (or, with
+    `raise_on_sync=False`, is recorded in the yielded object's `events`)."""
+    audit = _Audit(raise_on_sync)
+    with _FnMode(audit), _DispatchMode(audit):
+        yield audit

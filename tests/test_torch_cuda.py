@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 import torch
 
-from monocular_slam_tpu_torch.ops import fast_score, features, pyramid
+from monocular_slam_tpu_torch.ops import fast_score, features, launches, pyramid
 
 pytestmark = pytest.mark.cuda
 
@@ -31,10 +31,10 @@ def _image(dev, h, w, seed=0):
 @pytest.mark.parametrize("hw", [(480, 640), (400, 533), (231, 309), (134, 179), (101, 173), (7, 5)])
 def test_k1_matches_plain(cuda, hw):
     img = _image(cuda, *hw)
-    before = fast_score.LAUNCHES
+    before = launches.count("corner_maps")
     nms_k, raw_k = fast_score.corner_maps(img, 20.0)
     torch.cuda.synchronize()
-    assert fast_score.LAUNCHES == before + 1
+    assert launches.count("corner_maps") == before + 1
     nms_p, raw_p = fast_score.corner_maps_plain(img, 20.0)
     torch.testing.assert_close(nms_k, nms_p, rtol=0, atol=1e-5)
     torch.testing.assert_close(raw_k[3:-3, 3:-3], raw_p[3:-3, 3:-3], rtol=0, atol=1e-5)
@@ -44,10 +44,10 @@ def test_k1_all_levels_one_launch(cuda):
     """The 8 levels of a 640x480 frame in one launch, each level's maps as
     the plain version's; the one-level call on an odd shape."""
     levels = [x.contiguous() for x in pyramid.build_pyramid(_image(cuda, 480, 640, seed=5))]
-    before = fast_score.LAUNCHES
+    before = launches.count("corner_maps")
     maps = fast_score.corner_maps_levels(levels, 20.0)
     torch.cuda.synchronize()
-    assert fast_score.LAUNCHES == before + 1
+    assert launches.count("corner_maps") == before + 1
     for img, (nms_k, raw_k), (nms_p, raw_p) in zip(
             levels, maps, fast_score.corner_maps_levels_plain(levels, 20.0)):
         assert nms_k.shape == img.shape
@@ -56,7 +56,7 @@ def test_k1_all_levels_one_launch(cuda):
     odd = _image(cuda, 101, 173, seed=6)
     nms_k, raw_k = fast_score.corner_maps(odd, 20.0)
     nms_p, raw_p = fast_score.corner_maps_plain(odd, 20.0)
-    assert fast_score.LAUNCHES == before + 2
+    assert launches.count("corner_maps") == before + 2
     torch.testing.assert_close(nms_k, nms_p, rtol=0, atol=1e-5)
     torch.testing.assert_close(raw_k[3:-3, 3:-3], raw_p[3:-3, 3:-3], rtol=0, atol=1e-5)
 
@@ -89,10 +89,14 @@ def test_session_on_cuda(cuda):
     cfg = SlamConfig(max_frames=16, max_points=4000, image_wh=(320, 240),
                      frontend=FrontendConfig(n_features=600))
     sess = SlamSession(cfg, seed=0, device=cuda)
-    before = fast_score.LAUNCHES
+    before = launches.count("corner_maps")
     for i in range(12):
         sess.add_frame(imgs[i], k, i / 30.0)
-    assert fast_score.LAUNCHES - before == 12  # one K1 launch per frame, all levels
+    # one K1 launch per frame, all levels, plus one per captured image
+    # program's warm-up run
+    warmups = sum(1 for key in sess.capture_s if key[:2] == ("track", "image"))
+    assert warmups >= 1
+    assert launches.count("corner_maps") - before == 12 + warmups
     poses, valid, _ = sess.trajectory()
     assert valid.sum() >= 10 and np.isfinite(poses).all()
     assert ate.ate(poses[valid], gt[valid]).rmse < 0.04
@@ -128,10 +132,10 @@ def test_k2_matches_plain(cuda, case):
     else:
         a, b = _pm1(cuda, 1, 9), _pm1(cuda, 5000, 10)
         bv = torch.ones(5000, dtype=torch.bool, device=cuda)
-    before = hamming.LAUNCHES
+    before = launches.count("hamming_top2")
     k = hamming.hamming_top2(a, b, bv)
     torch.cuda.synchronize()
-    assert hamming.LAUNCHES == before + 1
+    assert launches.count("hamming_top2") == before + 1
     p = hamming.hamming_top2_plain(a, b, bv)
     for x, y in zip(k, p):
         assert x.dtype == torch.int32 and torch.equal(x, y)
@@ -175,10 +179,10 @@ def test_k2_batched_split_matches_plain(cuda, case):
         b[36] = a[3]
         bv = torch.rand(37, device=cuda) > 0.2
         bv[36] = True
-    before = hamming.LAUNCHES
+    before = launches.count("hamming_top2")
     k = hamming.hamming_top2(a, b.contiguous(), bv)
     torch.cuda.synchronize()
-    assert hamming.LAUNCHES == before + 1
+    assert launches.count("hamming_top2") == before + 1
     p = hamming.hamming_top2_plain(a, b, bv)
     for x, y in zip(k, p):
         assert x.dtype == torch.int32 and x.shape == y.shape and torch.equal(x, y)
@@ -203,31 +207,30 @@ def test_k2_rejects_bad_input(cuda):
 
 
 def test_k2_match_route(cuda):
-    from monocular_slam_tpu_torch.ops import hamming, matching
+    from monocular_slam_tpu_torch.ops import matching
 
     a = _pm1(cuda, 500, 11)
     b = torch.cat([a[:400], _pm1(cuda, 100, 12)])
     b = torch.where(torch.rand(b.shape, device=cuda) < 0.05, -b, b).contiguous()
     av = torch.rand(500, device=cuda) > 0.1
     bv = torch.rand(500, device=cuda) > 0.1
-    before = hamming.LAUNCHES
+    before = launches.count("hamming_top2")
     mk = matching.match(a, b, av, bv, use_kernel=True)
-    assert hamming.LAUNCHES == before + 2  # forward pass and the cross-check pass
+    assert launches.count("hamming_top2") == before + 2  # forward pass and the cross-check pass
     md = matching.match(a, b, av, bv, use_kernel=False)
-    assert hamming.LAUNCHES == before + 2
+    assert launches.count("hamming_top2") == before + 2
     assert torch.equal(mk.ok, md.ok) and int(mk.n_matches) > 300
     assert torch.equal(mk.idx[mk.ok], md.idx[md.ok])
     # the default route takes K2 for a single database of >= 4096 rows
     big = _pm1(cuda, matching.PALLAS_MIN_DB, 13)
     matching.match(a, big, av, torch.ones(big.shape[0], dtype=torch.bool, device=cuda))
-    assert hamming.LAUNCHES == before + 4
+    assert launches.count("hamming_top2") == before + 4
 
 
 def test_window_route_equals_dense_on_session_state(cuda):
     """The tracker's back-traverse window on a real session state: K2 (two
     launches) and the dense route give the same `Matches` on every row."""
     from monocular_slam_tpu_torch.datasets import render
-    from monocular_slam_tpu_torch.ops import hamming
     from monocular_slam_tpu_torch.slam import tracker
     from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
     from monocular_slam_tpu_torch.slam.session import SlamSession
@@ -238,9 +241,9 @@ def test_window_route_equals_dense_on_session_state(cuda):
     sess = SlamSession(cfg, seed=0, device=cuda)
     for i in range(9):
         sess.add_frame(imgs[i], k, i / 30.0)
-    before = hamming.LAUNCHES
+    before = launches.count("hamming_top2")
     _, _, mk = tracker._window_matches(sess.state, 8, cfg, use_kernel=True)
-    assert hamming.LAUNCHES == before + 2
+    assert launches.count("hamming_top2") == before + 2
     _, _, md = tracker._window_matches(sess.state, 8, cfg, use_kernel=False)
     for f in ("idx", "dist", "ok", "n_matches"):
         assert torch.equal(getattr(mk, f), getattr(md, f)), f
@@ -251,7 +254,6 @@ def test_loop_closer_session_on_cuda(cuda):
     """A 320x240 loop-closing session on the card: detection every frame,
     relocalization through K2 after a blackout, finite poses."""
     from monocular_slam_tpu_torch.datasets import render
-    from monocular_slam_tpu_torch.ops import hamming
     from monocular_slam_tpu_torch.retrieval import vocabulary
     from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
     from monocular_slam_tpu_torch.slam.loop_closer import LoopCloser, LoopClosureConfig
@@ -266,11 +268,11 @@ def test_loop_closer_session_on_cuda(cuda):
     # when the failure streak is read
     noise = 255.0 * torch.rand((8, 240, 320), device=cuda)
     frames = torch.cat([imgs[:12], torch.floor(noise), imgs[12:]])
-    hamming.LAUNCHES = 0
+    launches.reset()
     for i in range(frames.shape[0]):
         sess.add_frame(frames[i], k, i / 30.0)
     poses, valid, _ = sess.trajectory()
-    assert sess.reloc_attempts >= 1 and hamming.LAUNCHES >= 2
+    assert sess.reloc_attempts >= 1 and launches.count("hamming_top2") >= 2
     assert np.isfinite(poses).all() and valid[:12].all()
     assert lc._db.abs().sum() > 0
 
@@ -340,9 +342,9 @@ def test_prewarm_and_buffer_on_cuda(cuda):
     cfg = SlamConfig(max_frames=16, max_points=4000, image_wh=(320, 240),
                      frontend=FrontendConfig(n_features=600))
     sess = SlamSession(cfg, seed=0, loop_closer=LoopCloser(vocabulary.load_default(), cfg))
-    before = fast_score.LAUNCHES
+    before = launches.count("corner_maps")
     assert sess.prewarm(image=True) > 0
-    assert fast_score.LAUNCHES == before + 2  # "auto" steering: both modes
+    assert launches.count("corner_maps") == before + 2  # "auto" steering: both modes
     buf = imgs.to(torch.uint8)
     for i in range(8):
         sess.add_frame_from_buffer(buf, i, k, i / 30.0)
@@ -560,3 +562,102 @@ def test_keyed_draws_on_cuda_match_numpy(cuda, shape):
         np.testing.assert_array_equal(
             epipolar._sample_indices(key, shape[0], size, mask.to(cuda)).cpu().numpy(),
             epipolar._sample_indices(key, shape[0], size, mask).numpy())
+
+
+# --- K3 and the step program -----------------------------------------------------
+
+
+def _spd(dev, shape, n, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    a = torch.randn(*shape, n + 2, n, generator=g, dtype=torch.float64)
+    return (a.mT @ a).to(torch.float32).to(dev)
+
+
+@pytest.mark.parametrize("shape,n", [((1000,), 4), ((3,), 12), ((5,), 9), ((), 6), ((2, 3), 1)])
+def test_k3_eigh_matches_plain(cuda, shape, n):
+    """K3's eigh against `torch.linalg.eigh`: eigenvalues within 1e-5 of the
+    largest; eigenvectors |<v, v_plain>| >= 1 - 1e-5 where the eigengap
+    exceeds 1e-3 of the largest eigenvalue; A V = V diag(w)."""
+    from monocular_slam_tpu_torch.ops import small_eigh
+
+    A = _spd(cuda, shape, n, seed=n)
+    before = launches.count("small_eigh")
+    w, V = small_eigh.eigh(A)
+    torch.cuda.synchronize()
+    assert launches.count("small_eigh") == before + 1
+    wp, Vp = small_eigh.eigh_plain(A)
+    scale = wp.abs().amax(-1, keepdim=True)
+    assert float(((w - wp).abs() / scale).max()) <= 1e-5
+    assert bool((w[..., 1:] >= w[..., :-1]).all())
+    gap = torch.full_like(wp, float("inf"))
+    if n > 1:
+        d = wp[..., 1:] - wp[..., :-1]
+        gap[..., 1:] = torch.minimum(gap[..., 1:], d)
+        gap[..., :-1] = torch.minimum(gap[..., :-1], d)
+    dots = (V * Vp).sum(-2).abs()
+    sel = gap > 1e-3 * scale
+    assert bool(sel.any()) and float(dots[sel].min()) >= 1 - 1e-5
+    assert float((A @ V - V * w[..., None, :]).abs().max() / scale.max()) <= 1e-5
+    with pytest.raises(ValueError):
+        small_eigh.eigh(torch.zeros(2, 13, 13, device=cuda))
+
+
+@pytest.mark.parametrize("batch", [1, 512])
+def test_k3_svd3_matches_plain(cuda, batch):
+    """K3's 3x3 SVD: singular values and the product U S Vt as the plain
+    version's; U and V orthonormal; a rank-1 matrix still gives a rotation
+    basis; `project_to_so3` on the card a rotation."""
+    from monocular_slam_tpu_torch.geometry import so3
+    from monocular_slam_tpu_torch.ops import small_eigh
+
+    g = torch.Generator(device="cpu").manual_seed(batch)
+    M = torch.randn(batch, 3, 3, generator=g).to(cuda)
+    U, S, Vt = small_eigh.svd3(M)
+    Up, Sp, Vtp = small_eigh.svd3_plain(M)
+    torch.testing.assert_close(S, Sp, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close((U * S[..., None, :]) @ Vt, M, rtol=0, atol=1e-5)
+    eye = torch.eye(3, device=cuda).expand(batch, 3, 3)
+    torch.testing.assert_close(U.mT @ U, eye, rtol=0, atol=1e-5)
+    torch.testing.assert_close(Vt @ Vt.mT, eye, rtol=0, atol=1e-5)
+    r1 = torch.outer(torch.tensor([1.0, 2.0, 3.0]), torch.tensor([0.5, -1.0, 2.0])).to(cuda)
+    U1, S1, Vt1 = small_eigh.svd3(r1)
+    torch.testing.assert_close(U1.mT @ U1, torch.eye(3, device=cuda), rtol=0, atol=1e-5)
+    torch.testing.assert_close((U1 * S1[..., None, :]) @ Vt1, r1, rtol=0, atol=1e-5)
+    R = so3.project_to_so3(M)
+    torch.testing.assert_close(R.mT @ R, eye, rtol=0, atol=1e-5)
+    assert float((torch.linalg.det(R) - 1).abs().max()) < 1e-5
+
+
+def test_step_program_equals_eager_on_cuda(cuda):
+    """A feature course through the captured step programs and through the
+    same functions op by op on the card: equal tracked flags, keyframes
+    and outcomes, poses within 1e-6; one host read of the mapping flags
+    per tracked frame, and each tracked frame's K2 launches as the card
+    counted them."""
+    from monocular_slam_tpu_torch.datasets import synthetic
+    from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
+    from monocular_slam_tpu_torch.slam.session import SlamSession
+    from monocular_slam_tpu_torch.utils import prng
+
+    seq = synthetic.feature_sequence(prng.PRNGKey(0), n_frames=16, n_features=300, device=cuda)
+    cfg = SlamConfig(max_frames=16, max_points=3000, frontend=FrontendConfig(n_features=300))
+    runs = []
+    for use_graphs in (True, False):
+        sess = SlamSession(cfg, seed=0, device=cuda)
+        sess._use_graphs = use_graphs
+        for i, f in enumerate(seq.frames):
+            sess.add_frame_features(f, seq.k, float(i))
+        poses, valid, _ = sess.trajectory()
+        runs.append((sess, poses, valid, sess.keyframes,
+                     [(s.tracked, s.n_inliers, s.n_new_points, s.is_keyframe, s.n_fused,
+                       s.n_culled, s.last_kf) for s in sess.stats]))
+    (g, pg, vg, kg, sg), (e, pe, ve, ke, se) = runs
+    np.testing.assert_array_equal(vg, ve)
+    assert kg == ke and sg == se
+    assert np.abs(pg[vg] - pe[vg]).max() <= 1e-6
+    assert vg.sum() >= 14
+    k2g = [c["hamming_top2"] for c in g.step_launches]
+    k2e = [c["hamming_top2"] for c in e.step_launches]
+    assert g.flag_reads == len(k2g) >= 13 and e.flag_reads == 0
+    assert min(k2g) >= 2 and k2g[1:] == k2e[1:]
+    assert any(key[0] == "map" for key in g.capture_s)

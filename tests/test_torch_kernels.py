@@ -16,6 +16,7 @@ import torch
 from monocular_slam_tpu.ops import matching as jmatch
 from monocular_slam_tpu.ops.pallas import hamming as jham
 from monocular_slam_tpu.retrieval import vocabulary as jvoc
+from monocular_slam_tpu_torch.ops import launches
 from monocular_slam_tpu_torch.ops import hamming as tham
 from monocular_slam_tpu_torch.ops import matching as tmatch
 from monocular_slam_tpu_torch.retrieval import vocabulary as tvoc
@@ -126,9 +127,9 @@ def test_kernel_entry_refuses_cpu_and_bad_inputs():
     with pytest.raises(ValueError):
         tham.hamming_top2_cuda(a, a, torch.ones(4, dtype=torch.bool))
     # the default route on CPU tensors is the dense table, never the kernel
-    before = tham.LAUNCHES
+    before = launches.read()
     tmatch.match(a, a, torch.ones(4, dtype=torch.bool), torch.ones(4, dtype=torch.bool))
-    assert tham.LAUNCHES == before
+    assert launches.read() == before
 
 
 # --- vocabulary -------------------------------------------------------------------
