@@ -10,6 +10,7 @@
     python3 chip_profile.py fps [ROOT]     # the session's and the loop course's fps, package from ROOT
     python3 chip_profile.py nccl     # host cost of one all-reduce at NCCL world size 1
     python3 chip_profile.py k3ab     # the loop and key-3 courses with the step's eigh/svd on K3 or torch.linalg
+    python3 chip_profile.py k3 [ROOT]      # K3 alone at chip_smoke.py's K3 shapes, package from ROOT
     python3 chip_profile.py cgsteps  # chip_smoke.py's long phase at the reference's PCG steps and the port's
 
 `cgdense`: the loop course of `chip_smoke.py`, then global BA on its
@@ -42,12 +43,24 @@ relocalization attempts), with `monocular_slam_tpu_torch` and
 `chip_smoke.py` imported from ROOT (default: this checkout). Run it on two
 checkouts in one call, in turns, to compare them on one card.
 
+`k3 [ROOT]`: K3 alone on `chip_smoke._k3_inputs`' four inputs (eigh of
+(1000, 4, 4) and (1, 12, 12), svd3 of (1, 3, 3) and (512, 3, 3)), with
+`monocular_slam_tpu_torch` and `chip_smoke.py` imported from ROOT (default:
+this checkout): per shape the median event-timed call over 50 (inference
+mode) and the device ms per call from `torch.profiler` (every device
+operation of the call) of the kernel and of `torch.linalg` on the same
+input, and the kernel's largest value difference from `torch.linalg`
+relative to the largest value. Run it on two checkouts in one call, in
+turns, to compare them on one card.
+
 `k3ab`: the loop course and the committed key-3 fixture's course of
-`chip_smoke.py`, each four ways: op by op with the parent's calls (the
-step's `eigh`, 3x3 `svd` and `svdvals` on `torch.linalg`, and
-`project_to_so3`'s determinant by `torch.linalg.det` in place of the
-closed form); op by op with `eigh` and `svd` sent to `torch.linalg`
-(cuSOLVER; it checks its status on the host, so it cannot be captured);
+`chip_smoke.py`, each four ways: op by op with the earlier calls (the step's
+`eigh`, 3x3 `svd` and `svdvals` on `torch.linalg`, and `project_to_so3`'s
+determinant by `torch.linalg.det` in place of the closed form; since the
+PnP refit takes its scale and rotation from one `svd3` call, its scale
+comes from that `svd`'s S, not from a `svdvals` call of its own); op by
+op with `eigh` and `svd` sent to `torch.linalg` (cuSOLVER; it checks its
+status on the host, so it cannot be captured);
 op by op on K3, with every K3 call also run
 through `torch.linalg` on the same input and the two held together
 (eigenvalues relative to the largest, eigenvectors |<v, v_plain>| where the
@@ -547,6 +560,47 @@ def fps_run(smi: str, root: str | None) -> int:
     return 0
 
 
+def k3_run(smi: str, root: str | None) -> int:
+    if root:
+        sys.path.insert(0, root)
+    import chip_smoke as cs
+    import monocular_slam_tpu_torch
+    from monocular_slam_tpu_torch.ops import small_eigh
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_ms_per_call(fn, n: int = 20) -> float:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+                 for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+        return us / n / 1e3
+
+    small_eigh.load()
+    out = {"device": smi, "package": monocular_slam_tpu_torch.__file__}
+    for name, x in cs._k3_inputs("cuda").items():
+        if name.startswith("eigh"):
+            fns = {"kernel": lambda x=x: small_eigh.eigh(x),
+                   "torch.linalg": lambda x=x: small_eigh.eigh_plain(x)}
+        else:
+            fns = {"kernel": lambda x=x: small_eigh.svd3(x),
+                   "torch.linalg": lambda x=x: small_eigh.svd3_plain(x)}
+        with torch.inference_mode():
+            vals = [f()[0 if name.startswith("eigh") else 1] for f in fns.values()]
+        scale = vals[1].abs().amax(-1, keepdim=True)
+        row = {"max_value_rel_err": {label: float(((v - vals[1]).abs() / scale).max())
+                                     for label, v in zip(fns, vals)}}
+        for label, fn in fns.items():
+            row[label] = {"ms": cs.time_ms_inference(fn), "device_ms": device_ms_per_call(fn)}
+        out[name] = row
+        print(json.dumps({name: row}), flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
 def cg_steps(smi: str) -> int:
     import chip_smoke as cs
     from monocular_slam_tpu_torch.slam import loop_closer
@@ -708,6 +762,8 @@ def main() -> int:
         return det_sum(smi, sys.argv[2] if len(sys.argv) > 2 else None)
     if sys.argv[1:2] == ["fps"]:
         return fps_run(smi, sys.argv[2] if len(sys.argv) > 2 else None)
+    if sys.argv[1:2] == ["k3"]:
+        return k3_run(smi, sys.argv[2] if len(sys.argv) > 2 else None)
     import chip_smoke as cs
     from monocular_slam_tpu_torch.ops import fast_score, hamming
     from monocular_slam_tpu_torch.retrieval import vocabulary

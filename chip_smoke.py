@@ -49,17 +49,18 @@ graph replays a frame), except the program phase's op-by-op A/B run:
                 4) and (1, 12, 12), svd3 of (1, 3, 3) and (512, 3, 3);
                 values within K3_TOL of the largest, vectors
                 |<v, v_plain>| >= 1 - K3_TOL where the gap exceeds K3_GAP of
-                the largest, U S Vt within K3_TOL; ms, device ms, bound;
+                the largest, U S Vt within K3_TOL; ms, device ms, bound
+                (the kernels line carries every shape under `shapes`);
  6b. program  — the session's course through the captured programs, with
                 host syncs over frames 10-59 (`set_sync_debug_mode` warnings
                 plus the flag reads plus lagged reads that waited), against
                 the same functions run op by op on the card: flags and
                 keyframes equal, poses within 1e-6 m, syncs <= 1 a frame;
                 fps of both, capture seconds and graph-pool memory of a
-                prewarmed session, a profile of one tracked frame's two
-                replays (K1 once, K2 at least twice, K3's two kernels; its
-                device operations) and the card's idle share over frames
-                13-22;
+                prewarmed session, a profile of frames 13-22's replays
+                (K1, K2 at least twice, K3's eigh and svd3 in every frame;
+                device operations, device ms and K3's device ms a frame)
+                and the card's idle share over them;
   7. k2       — K2 vs its plain version, equal exactly in d1, d2 and idx, on
                 1000x1000 real descriptors (frames 0 and 5 of the course),
                 2000x20000 and 2000x65536 random +-1, 97x123, an all-invalid
@@ -195,11 +196,16 @@ TRAJ_TOL_M = 1e-6  # dense-window vs K2-window, and graph vs eager, session traj
 # triangulation and the PnP refit; the PnP scale and `project_to_so3`)
 STEP_MIN_LAUNCHES = {"corner_maps": 1, "hamming_top2": 2, "small_eigh": 1, "svd3": 1}
 K3_SOURCE = "monocular_slam_tpu_torch/csrc/small_eigh.cu"
+# K3's kernels by name (`torch.profiler`): eigh takes the per-thread kernel
+# for n <= 4 and the warp kernel for n = 5..12
+K3_EIGH_THREAD, K3_EIGH_WARP, K3_SVD = ("small_eigh_thread_kernel", "small_eigh_warp_kernel",
+                                        "svd3_kernel")
 # K3 has no Pallas counterpart: it takes the place of XLA's eigh / svd inside
 # the reference's step (`jnp.linalg.eigh` in triangulation and the PnP
 # refit, `jnp.linalg.svd` in the SO(3) projection)
 K3_REPLACES = "monocular_slam_tpu/geometry/triangulate.py:58"
 K3_SVD_REPLACES = "monocular_slam_tpu/geometry/so3.py:179"
+K3_FIELDS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 K3_TOL = 1e-5  # values relative to the largest; 1 - |<v, v_plain>|; SVD residual
 K3_GAP = 1e-3  # eigenvectors compared where the eigengap exceeds this of the largest
 LOOP_FRAMES = 112
@@ -498,8 +504,8 @@ def run_session(imgs, poses_gt, k, count_syncs: bool, loop_closer: bool = False,
     forces the tracker's window onto the dense route. The kernels' counts
     are set to 0 after `prewarm` and read after the last frame
     (`launches`), and each tracked step's are read from the counts the card
-    kept around it (`SlamSession.step_launches`; `step_min` is the fewest of
-    each kernel in any step). With
+    kept around it (`SlamSession.step_launches`; `step_min` and `step_max`
+    are the fewest and the most of each kernel in any step). With
     `count_syncs`, frames 10-59 run under `set_sync_debug_mode("warn")`:
     host syncs are its warnings plus the session's reads of the mapping
     block's flags and the lagged outcome reads that waited on the card."""
@@ -520,9 +526,11 @@ def run_session(imgs, poses_gt, k, count_syncs: bool, loop_closer: bool = False,
 
     def record_sync(message, category, filename, lineno, file=None, line=None):
         """A sync warning, attributed to the innermost frame of the port or
-        of this script on the stack."""
+        of this script on the stack. torch's notice that the debug mode is a
+        prototype, given once a process when the mode is first set, names
+        synchronizing operations but is none."""
         nonlocal syncs
-        if "synchroniz" not in str(message):
+        if "synchroniz" not in str(message) or "prototype" in str(message):
             return
         syncs += 1
         src = f"{filename}:{lineno}"
@@ -584,6 +592,7 @@ def run_session(imgs, poses_gt, k, count_syncs: bool, loop_closer: bool = False,
         "keyframes": sess.keyframes,
         "launches": counted, "track_calls": len(steps),
         "step_min": {n: min((c[n] for c in steps), default=0) for n in launches.KERNELS},
+        "step_max": {n: max((c[n] for c in steps), default=0) for n in launches.KERNELS},
         "capture_s": sum(sess.capture_s.values()), "programs": len(sess.capture_s),
         "poses": poses, "valid": valid,
         "tracked_flags": [bool(s.tracked) for s in sess.stats],
@@ -628,7 +637,9 @@ def phase_session() -> dict:
         f"{out['fps_10_59']:.2f} fps over frames 10-59 (dense window {warm['fps_10_59']:.2f}), "
         f"K1 launches {k1_launches}, K2 launches {k2_launches} in {out['track_calls']} tracked "
         f"steps (at least {step_min['hamming_top2']} each), K3 {k3_launches} eigh and "
-        f"{k3_svd_launches} svd3 launches, max |pose - dense-window pose| "
+        f"{k3_svd_launches} svd3 launches ({step_min['small_eigh']}-"
+        f"{out['step_max']['small_eigh']} eigh and {step_min['svd3']}-"
+        f"{out['step_max']['svd3']} svd3 a tracked step), max |pose - dense-window pose| "
         f"{traj_diff:.3g}")
     if out["tracked"] < MIN_TRACKED:
         raise AssertionError(f"tracked {out['tracked']} < {MIN_TRACKED}")
@@ -718,7 +729,7 @@ def phase_k3() -> dict:
             val_err = float(((w - wp).abs() / wp.abs().amax(-1, keepdim=True)).max())
             vec = _vec_agreement(V, Vp, wp)
             fn, plain = (lambda x=x: small_eigh.eigh(x)), (lambda x=x: small_eigh.eigh_plain(x))
-            kernel = "small_eigh_kernel"
+            kernel = K3_EIGH_THREAD if n <= 4 else K3_EIGH_WARP
             nbytes = batch * (2 * n * n + n) * 4
             ops = batch * 9 * n ** 3  # a dense symmetric eigensolver's ~9 n^3 flops
             recon = None
@@ -731,7 +742,7 @@ def phase_k3() -> dict:
                       if v is not None)
             recon = float(((U * S[..., None, :]) @ Vt - x).abs().max() / x.abs().max())
             fn, plain = (lambda x=x: small_eigh.svd3(x)), (lambda x=x: small_eigh.svd3_plain(x))
-            kernel = "svd3_kernel"
+            kernel = K3_SVD
             nbytes = batch * (9 + 9 + 3 + 9) * 4  # M read; U, S, Vt written
             ops = batch * 21 * 27  # Golub-Van Loan's ~21 n^3 flops of a full SVD
         ms = time_ms_inference(fn)
@@ -761,8 +772,9 @@ def phase_program(sess_out) -> dict:
     the same functions run op by op on the card (`_use_graphs` cleared):
     equal tracked flags and keyframes, poses within TRAJ_TOL_M; fps of
     both; the programs' capture seconds and graph-pool memory; a profile
-    of one tracked frame's two replays (kernels by name: K1 once, K2 at
-    least twice, K3)."""
+    of ten tracked frames' replays (device operations and device ms a
+    frame, the card's idle share, and the kernels by name: K1, K2 twice,
+    K3's eigh and svd3 in every frame)."""
     from torch.profiler import ProfilerActivity, profile
 
     from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
@@ -776,7 +788,7 @@ def phase_program(sess_out) -> dict:
     v = graph_run["valid"] & eager_run["valid"]
     diff = float(np.abs(graph_run["poses"][v] - eager_run["poses"][v]).max())
 
-    # captures and pool memory, then one tracked frame's replays profiled
+    # captures and pool memory, then ten tracked frames' replays profiled
     cfg = SlamConfig(max_frames=64, max_points=20000, image_wh=WH,
                      frontend=FrontendConfig(n_features=1000))
     sess = SlamSession(cfg, seed=1, run_ba=True, device="cuda")
@@ -785,34 +797,38 @@ def phase_program(sess_out) -> dict:
                      if tuple(seg.get("segment_pool_id", ())) == tuple(sess._pool))
 
     def device_ops(prof):
-        """(device operations, their device ms, counts of the kernels by name)."""
-        names, n, us = {}, 0, 0.0
+        """(device operations, their device ms, counts and device ms of the
+        kernels by name)."""
+        names, tag_ms, n, us = {}, {}, 0, 0.0
         for e in prof.key_averages():
             if e.device_type != torch.autograd.DeviceType.CUDA:
                 continue  # host events (their device time is their children's)
+            t = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
             n += e.count
-            us += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
-            for tag in ("corner_maps_levels_kernel", "hamming_top2_kernel", "small_eigh_kernel",
-                        "svd3_kernel"):
+            us += t
+            for tag in ("corner_maps_levels_kernel", "hamming_top2_kernel", K3_EIGH_THREAD,
+                        K3_EIGH_WARP, K3_SVD):
                 if tag in e.key:
                     names[tag] = names.get(tag, 0) + e.count
-        return n, us / 1e3, names
+                    tag_ms[tag] = tag_ms.get(tag, 0.0) + t / 1e3
+        return n, us / 1e3, names, tag_ms
 
-    for i in range(12):
+    for i in range(13):
         sess.add_frame(imgs[i], k, i / 30.0)
     torch.cuda.synchronize()
+    # ten steady tracked frames profiled; the card's idle share is 1 - device
+    # busy / wall. The host waits before the first frame: a trace that started
+    # with the frame once lost the frame's first ~115 device operations, K1
+    # among them.
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sess.add_frame(imgs[12], k, 12 / 30.0)
-        torch.cuda.synchronize()
-    n_kernels, frame_ms, names = device_ops(prof)
-    # the card's idle share over ten steady frames: 1 - device busy / wall
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.1)
         t0 = time.perf_counter()
         for i in range(13, 23):
             sess.add_frame(imgs[i], k, i / 30.0)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    _, busy_ms, _ = device_ops(prof)
+    n_ops, busy_ms, names, names_ms = device_ops(prof)
+    k3_ms = sum(names_ms.get(t, 0.0) for t in (K3_EIGH_THREAD, K3_EIGH_WARP, K3_SVD)) / 10
     out = {
         "graph": {n: graph_run[n] for n in ("tracked", "ate_m", "fps_10_59", "syncs_per_frame",
                                             "debug_mode_syncs_per_frame", "flag_reads_per_frame",
@@ -824,9 +840,11 @@ def phase_program(sess_out) -> dict:
         "prewarm_s": prewarm_s, "capture_s": {"/".join(str(p) for p in key[:3]): s
                                               for key, s in sess.capture_s.items()},
         "graph_pool_bytes": pool_bytes,
-        "replay_kernels": n_kernels, "replay_device_ms": frame_ms,
-        "replay_kernels_by_name": names, "idle_share_frames_13_22": 1.0 - busy_ms / wall_ms,
-        "device_ms_per_frame_13_22": busy_ms / 10, "wall_ms_per_frame_13_22": wall_ms / 10,
+        "device_ops_per_frame_13_22": n_ops / 10, "device_ms_per_frame_13_22": busy_ms / 10,
+        "wall_ms_per_frame_13_22": wall_ms / 10, "idle_share_frames_13_22": 1.0 - busy_ms / wall_ms,
+        "kernels_by_name_13_22": names,
+        "kernel_ms_per_frame_13_22": {t: ms / 10 for t, ms in names_ms.items()},
+        "k3_ms_per_frame_13_22": k3_ms,
         # the profiler slows the host: the same device time over the unprofiled
         # run's wall time per frame (frames 10-59)
         "idle_share_unprofiled": 1.0 - (busy_ms / 10) * graph_run["fps_10_59"] / 1e3,
@@ -837,9 +855,10 @@ def phase_program(sess_out) -> dict:
         f"{graph_run['syncs_per_frame']:.2f} host syncs per frame; eager route on the card: "
         f"{eager_run['fps_10_59']:.2f} fps, {eager_run['syncs_per_frame']:.2f} host syncs per "
         f"frame; max |pose_graph - pose_eager| {diff:.3g} m; "
-        f"{n_kernels} device operations ({frame_ms:.2f} ms) in one tracked frame's two "
-        f"replays; the card idle {100 * out['idle_share_frames_13_22']:.1f}% over frames 13-22 "
-        f"(profiled), {100 * out['idle_share_unprofiled']:.1f}% against the unprofiled wall")
+        f"{n_ops / 10:.1f} device operations ({busy_ms / 10:.2f} ms, K3 {k3_ms:.4f} ms) a tracked "
+        f"frame over frames 13-22; the card idle "
+        f"{100 * out['idle_share_frames_13_22']:.1f}% over them (profiled), "
+        f"{100 * out['idle_share_unprofiled']:.1f}% against the unprofiled wall")
     fails = []
     if graph_run["tracked"] < MIN_TRACKED or not graph_run["ate_m"] <= MAX_ATE_M:
         fails.append(f"tracked {graph_run['tracked']}, ATE {graph_run['ate_m']}")
@@ -848,9 +867,11 @@ def phase_program(sess_out) -> dict:
                      f"max pose difference {diff}")
     if not graph_run["syncs_per_frame"] <= 1.0:
         fails.append(f"{graph_run['syncs_per_frame']} host syncs per frame > 1")
-    if (names.get("corner_maps_levels_kernel", 0) < 1 or names.get("hamming_top2_kernel", 0) < 2
-            or names.get("small_eigh_kernel", 0) < 1 or names.get("svd3_kernel", 0) < 1):
-        fails.append(f"the profiled replays ran {names}")
+    if (names.get("corner_maps_levels_kernel", 0) < 10 or names.get("hamming_top2_kernel", 0) < 20
+            or names.get(K3_EIGH_THREAD, 0) + names.get(K3_EIGH_WARP, 0) < 10
+            or names.get(K3_SVD, 0) < 10):
+        fails.append(f"frames 13-22's profiled replays ran {names}, not K1, K2 twice, eigh and "
+                     f"svd3 in each frame")
     if fails:
         raise AssertionError("program: " + "; ".join(fails))
     return out
@@ -2029,13 +2050,15 @@ def main() -> int:
         {"name": "small_eigh", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": res["k3_launches"],
          "max_abs_err": max(k3[n]["max_abs_err"] for n in k3 if n.startswith("eigh")),
-         **{f: k3["eigh (1000, 4, 4)"][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                    "library_ms")}},
+         **{f: k3["eigh (1000, 4, 4)"][f] for f in K3_FIELDS},
+         "shapes": {n: {f: k3[n][f] for f in K3_FIELDS + ("device_ms",)}
+                    for n in k3 if n.startswith("eigh")}},
         {"name": "svd3", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_SVD_REPLACES, "launches": res["k3_svd_launches"],
          "max_abs_err": max(k3[n]["max_abs_err"] for n in k3 if n.startswith("svd3")),
-         **{f: k3["svd3 (1, 3, 3)"][f] for f in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                 "library_ms")}},
+         **{f: k3["svd3 (1, 3, 3)"][f] for f in K3_FIELDS},
+         "shapes": {n: {f: k3[n][f] for f in K3_FIELDS + ("device_ms",)}
+                    for n in k3 if n.startswith("svd3")}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

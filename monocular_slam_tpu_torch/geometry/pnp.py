@@ -40,6 +40,10 @@ def pnp_dlt(X, xy, w=None, solver: str = "eigh") -> torch.Tensor:
         det = torch.linalg.det(M)
         scale = torch.pow(torch.clamp(det, min=_EPS), 1.0 / 3.0)
         R = polar_orthogonalize(M / torch.clamp(scale, min=_EPS)[..., None, None])
+    elif M.is_cuda:  # one K3 svd3 gives both the scale and the rotation
+        U, s, Vt = small_eigh.svd3(M)
+        scale = s.mean(-1)
+        R = so3.rotation_from_svd(U, Vt)
     else:
         s = small_eigh.svdvals3(M)
         scale = s.mean(-1)

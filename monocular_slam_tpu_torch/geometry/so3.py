@@ -131,7 +131,13 @@ def project_to_so3(M: torch.Tensor) -> torch.Tensor:
     the SVD is K3's (`ops/small_eigh.svd3`) and the determinant the closed
     form, neither of which waits on the host."""
     U, _, Vt = small_eigh.svd3(M)
-    det = det3x3(U @ Vt) if M.is_cuda else torch.linalg.det(U @ Vt)
-    D = torch.ones(M.shape[:-2] + (3,), dtype=M.dtype, device=M.device)
+    return rotation_from_svd(U, Vt)
+
+
+def rotation_from_svd(U: torch.Tensor, Vt: torch.Tensor) -> torch.Tensor:
+    """`project_to_so3` from the factors U, Vt of its matrix's SVD: U D Vt
+    with D = diag(1, 1, det(U Vt))."""
+    det = det3x3(U @ Vt) if U.is_cuda else torch.linalg.det(U @ Vt)
+    D = torch.ones(U.shape[:-2] + (3,), dtype=U.dtype, device=U.device)
     D = torch.cat([D[..., :2], det[..., None]], dim=-1)
     return (U * D[..., None, :]) @ Vt

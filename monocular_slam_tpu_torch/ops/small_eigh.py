@@ -9,16 +9,20 @@ decompositions come here instead:
 
   - `eigh(A)`: (..., n, n) symmetric, 1 <= n <= 12 (its lower triangle is
     read) -> eigenvalues (..., n) ascending and eigenvectors (..., n, n) as
-    columns, each with its largest-magnitude entry positive;
-  - `svd3(M)`: (..., 3, 3) -> U, S (descending), Vt with M = U diag(S) Vt;
-    `svdvals3(M)` its S.
+    columns, each with its largest-magnitude entry positive. The kernel is
+    a Jacobi method in double with the round-robin ordering of
+    `jacobi_rounds`: a warp per matrix for n = 5..12, a thread per matrix
+    for n <= 4;
+  - `svd3(M)`: (..., 3, 3) -> U, S (descending), Vt with M = U diag(S) Vt,
+    by Jacobi on M^T M in double; `svdvals3(M)` its S.
 
 On CUDA tensors each launches its kernel on the current stream, and the
 launch adds one to its counter (`small_eigh` or `svd3` in
-`ops/launches.py`); an input the kernel does not take raises, and a kernel that fails to build or launch raises. On CPU
-tensors they return `eigh_plain` / `svd3_plain`, which are
-`torch.linalg.eigh` and `torch.linalg.svd` (an eigenvector's sign, and a
-repeated eigenvalue's basis, may differ from the kernel's).
+`ops/launches.py`); an input the kernel does not take raises, and a kernel
+that fails to build or launch raises. On CPU tensors they return
+`eigh_plain` / `svd3_plain`, which are `torch.linalg.eigh` and
+`torch.linalg.svd` (an eigenvector's sign, and a repeated eigenvalue's
+basis, may differ from the kernel's).
 """
 
 from __future__ import annotations
@@ -46,6 +50,26 @@ def load():
         lib.svd3.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def jacobi_rounds(n: int) -> list[list[tuple[int, int]]]:
+    """The kernel's Jacobi schedule for an n x n matrix, as a Python mirror
+    of `Slot` in `csrc/small_eigh.cu` (for the tests; nothing calls it on
+    the main path): one sweep's rounds, each a list of disjoint pairs
+    (p, q), p < q. n is padded to even m with a phantom index m - 1 when
+    it is odd; round r pairs r with m - 1 and (r + k) mod (m - 1) with
+    (r - k) mod (m - 1) for k = 1 .. m/2 - 1. Pairs with the phantom are
+    left out."""
+    m = n + (n & 1)
+    rounds = []
+    for r in range(m - 1):
+        pairs = []
+        for k in range(m // 2):
+            a, b = (r, m - 1) if k == 0 else ((r + k) % (m - 1), (r - k) % (m - 1))
+            if max(a, b) < n:
+                pairs.append((min(a, b), max(a, b)))
+        rounds.append(pairs)
+    return rounds
 
 
 def eigh_plain(A: torch.Tensor):
@@ -105,7 +129,10 @@ def svdvals3(M: torch.Tensor) -> torch.Tensor:
 
 def svd3(M: torch.Tensor):
     """(U, S, Vt) of (..., 3, 3): the kernel on a CUDA tensor,
-    `torch.linalg.svd` on a CPU tensor."""
+    `torch.linalg.svd` on a CPU tensor. The kernel works on M^T M, which
+    squares the condition: near a rank deficiency S and U S Vt are good to
+    about 1e-8 of the largest singular value, below float32's rounding but
+    far above float64's, for float64 inputs too."""
     if M.device.type == "cpu":
         return svd3_plain(M)
     if not M.is_cuda:

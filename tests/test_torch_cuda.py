@@ -573,22 +573,36 @@ def _spd(dev, shape, n, seed):
     return (a.mT @ a).to(torch.float32).to(dev)
 
 
-@pytest.mark.parametrize("shape,n", [((1000,), 4), ((3,), 12), ((5,), 9), ((), 6), ((2, 3), 1)])
-def test_k3_eigh_matches_plain(cuda, shape, n):
+# every n from 1 to 12: the per-thread kernel (n <= 4; 32 matrices a block)
+# and the warp kernel (n = 5..12; 4 matrices a block), odd n with the
+# phantom index, batches that fill neither a warp nor a block; float64 too
+K3_EIGH_CASES = [((1000,), 4, torch.float32), ((33,), 3, torch.float32), ((1,), 2, torch.float32),
+                 ((2, 3), 1, torch.float32), ((7,), 4, torch.float64), ((5,), 5, torch.float32),
+                 ((), 6, torch.float32), ((1,), 7, torch.float32), ((6,), 8, torch.float32),
+                 ((5,), 9, torch.float32), ((), 10, torch.float32), ((7,), 11, torch.float32),
+                 ((3,), 12, torch.float32), ((2,), 12, torch.float64)]
+
+
+@pytest.mark.parametrize("shape,n,dtype", K3_EIGH_CASES)
+def test_k3_eigh_matches_plain(cuda, shape, n, dtype):
     """K3's eigh against `torch.linalg.eigh`: eigenvalues within 1e-5 of the
     largest; eigenvectors |<v, v_plain>| >= 1 - 1e-5 where the eigengap
-    exceeds 1e-3 of the largest eigenvalue; A V = V diag(w)."""
+    exceeds 1e-3 of the largest eigenvalue; A V = V diag(w); each vector's
+    largest-magnitude entry positive."""
     from monocular_slam_tpu_torch.ops import small_eigh
 
-    A = _spd(cuda, shape, n, seed=n)
+    A = _spd(cuda, shape, n, seed=n).to(dtype)
     before = launches.count("small_eigh")
     w, V = small_eigh.eigh(A)
     torch.cuda.synchronize()
     assert launches.count("small_eigh") == before + 1
+    assert w.dtype == V.dtype == dtype
     wp, Vp = small_eigh.eigh_plain(A)
     scale = wp.abs().amax(-1, keepdim=True)
     assert float(((w - wp).abs() / scale).max()) <= 1e-5
     assert bool((w[..., 1:] >= w[..., :-1]).all())
+    big = torch.gather(V, -2, V.abs().argmax(-2, keepdim=True))
+    assert bool((big > 0).all())
     gap = torch.full_like(wp, float("inf"))
     if n > 1:
         d = wp[..., 1:] - wp[..., :-1]
@@ -602,11 +616,60 @@ def test_k3_eigh_matches_plain(cuda, shape, n):
         small_eigh.eigh(torch.zeros(2, 13, 13, device=cuda))
 
 
+def _degenerate(kind, n, dev):
+    g = torch.Generator(device="cpu").manual_seed(n)
+    if kind == "identity":
+        A = torch.eye(n, dtype=torch.float64)
+    elif kind == "zero":
+        A = torch.zeros(n, n, dtype=torch.float64)
+    elif kind in ("rank1", "rank2"):
+        x = torch.randn(int(kind[-1]), n, generator=g, dtype=torch.float64)
+        A = x.mT @ x
+    else:  # repeated eigenvalues
+        Q, _ = torch.linalg.qr(torch.randn(n, n, generator=g, dtype=torch.float64))
+        d = torch.tensor([1.0, 1.0, 2.0, 2.0, 2.0, 3.0, 3.0, 3.0, 3.0, 5.0, 5.0, 6.0])[:n]
+        A = (Q * d.double()) @ Q.mT
+    return A.to(torch.float32).to(dev)
+
+
+@pytest.mark.parametrize("kind", ["identity", "zero", "rank1", "rank2", "repeated"])
+@pytest.mark.parametrize("n", [3, 4, 5, 12])
+def test_k3_eigh_degenerate(cuda, kind, n):
+    """Identity, zero, rank-1, rank-2 and repeated-eigenvalue inputs: values
+    within 1e-5 of the largest of `torch.linalg.eigh`'s, A V = V diag(w),
+    V orthonormal (a repeated eigenvalue's basis is any); identity and zero
+    give V = I."""
+    from monocular_slam_tpu_torch.ops import small_eigh
+
+    A = _degenerate(kind, n, cuda)
+    w, V = small_eigh.eigh(A)
+    wp, _ = small_eigh.eigh_plain(A)
+    scale = max(float(wp.abs().max()), 1.0)
+    assert float((w - wp).abs().max()) <= 1e-5 * scale
+    assert float((A @ V - V * w).abs().max()) <= 1e-5 * scale
+    torch.testing.assert_close(V.mT @ V, torch.eye(n, device=cuda), rtol=0, atol=1e-5)
+    if kind in ("identity", "zero"):
+        assert torch.equal(V, torch.eye(n, device=cuda))
+
+
+@pytest.mark.parametrize("n", [1, 4, 12])
+def test_k3_eigh_nan_input(cuda, n):
+    """A NaN matrix stops the sweeps at once (its off-diagonal mass is not
+    finite) and writes every eigenvalue slot, all NaN."""
+    from monocular_slam_tpu_torch.ops import small_eigh
+
+    w, V = small_eigh.eigh(torch.full((3, n, n), float("nan"), device=cuda))
+    torch.cuda.synchronize()
+    assert bool(w.isnan().all())
+    assert torch.equal(V, torch.eye(n, device=cuda).expand(3, n, n))
+
+
 @pytest.mark.parametrize("batch", [1, 512])
 def test_k3_svd3_matches_plain(cuda, batch):
     """K3's 3x3 SVD: singular values and the product U S Vt as the plain
-    version's; U and V orthonormal; a rank-1 matrix still gives a rotation
-    basis; `project_to_so3` on the card a rotation."""
+    version's; U and V orthonormal; rank-1, rank-2 and zero matrices still
+    give orthonormal bases (the completion); `project_to_so3` on the card a
+    rotation."""
     from monocular_slam_tpu_torch.geometry import so3
     from monocular_slam_tpu_torch.ops import small_eigh
 
@@ -620,9 +683,14 @@ def test_k3_svd3_matches_plain(cuda, batch):
     torch.testing.assert_close(U.mT @ U, eye, rtol=0, atol=1e-5)
     torch.testing.assert_close(Vt @ Vt.mT, eye, rtol=0, atol=1e-5)
     r1 = torch.outer(torch.tensor([1.0, 2.0, 3.0]), torch.tensor([0.5, -1.0, 2.0])).to(cuda)
-    U1, S1, Vt1 = small_eigh.svd3(r1)
-    torch.testing.assert_close(U1.mT @ U1, torch.eye(3, device=cuda), rtol=0, atol=1e-5)
-    torch.testing.assert_close((U1 * S1[..., None, :]) @ Vt1, r1, rtol=0, atol=1e-5)
+    r2 = (torch.randn(3, 2, generator=g) @ torch.randn(2, 3, generator=g)).to(cuda)
+    for low in (r1, r2, torch.zeros(3, 3, device=cuda)):
+        Ul, Sl, Vtl = small_eigh.svd3(low)
+        torch.testing.assert_close(Sl, small_eigh.svd3_plain(low)[1], rtol=0,
+                                   atol=1e-5 * max(float(low.abs().max()), 1.0))
+        torch.testing.assert_close(Ul.mT @ Ul, torch.eye(3, device=cuda), rtol=0, atol=1e-5)
+        torch.testing.assert_close(Vtl @ Vtl.mT, torch.eye(3, device=cuda), rtol=0, atol=1e-5)
+        torch.testing.assert_close((Ul * Sl[..., None, :]) @ Vtl, low, rtol=0, atol=1e-5)
     R = so3.project_to_so3(M)
     torch.testing.assert_close(R.mT @ R, eye, rtol=0, atol=1e-5)
     assert float((torch.linalg.det(R) - 1).abs().max()) < 1e-5
@@ -633,7 +701,7 @@ def test_step_program_equals_eager_on_cuda(cuda):
     same functions op by op on the card: equal tracked flags, keyframes
     and outcomes, poses within 1e-6; one host read of the mapping flags
     per tracked frame, and each tracked frame's K2 launches as the card
-    counted them."""
+    counted them; two svd3 launches a tracked step."""
     from monocular_slam_tpu_torch.datasets import synthetic
     from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
     from monocular_slam_tpu_torch.slam.session import SlamSession
@@ -660,4 +728,7 @@ def test_step_program_equals_eager_on_cuda(cuda):
     k2e = [c["hamming_top2"] for c in e.step_launches]
     assert g.flag_reads == len(k2g) >= 13 and e.flag_reads == 0
     assert min(k2g) >= 2 and k2g[1:] == k2e[1:]
+    # one svd3 per LO refit of the PnP (two rounds), scale and rotation alike
+    assert [c["svd3"] for c in g.step_launches[1:]] == [2] * (len(k2g) - 1)
+    assert [c["svd3"] for c in e.step_launches] == [2] * len(k2e)
     assert any(key[0] == "map" for key in g.capture_s)
