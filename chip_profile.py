@@ -106,7 +106,10 @@ revisit the start, 8 frames of uniform noise after frame 40; max_frames 128,
 max_points 20000, 1000 features, 8 levels, steer_mode "auto", BA on, the
 bundled vocabulary) through `SlamSession` with a `LoopCloser`, and splits
 the wall time by stage: each stage function is wrapped so that it starts
-and ends with `torch.cuda.synchronize()`. The wrappers serialize the host
+and ends with `torch.cuda.synchronize()`, and each program replay is timed
+under its program's kind (the step's "track" and "map", the closer's
+"sim3", "correct", ...; a call made while a program is captured is not
+timed: its replays are). The wrappers serialize the host
 with the card, so the split adds up to more than the unwrapped run; the
 unwrapped fps is measured first, in the same process. Before both, the
 first and second calls of the library routines the loop closer adds
@@ -177,6 +180,27 @@ class StageTimer:
         setattr(owner, attr, timed)
         self._undo.append((owner, attr, orig))
 
+    def wrap_replays(self):
+        """Every program replay timed under its program's kind (the tracked
+        step's "track" and "map", the loop closer's "sim3", "correct", ...)."""
+        from monocular_slam_tpu_torch.utils import graph
+
+        orig = graph.Program.replay
+
+        def replay(prog):
+            kind = getattr(prog, "key", ("program",))[0]
+            name = f"program replays: {kind}"
+            _sync()
+            t0 = time.perf_counter()
+            out = orig(prog)
+            _sync()
+            self.ms[name] = self.ms.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            self.calls[name] = self.calls.get(name, 0) + 1
+            return out
+
+        graph.Program.replay = replay
+        self._undo.append((graph.Program, "replay", orig))
+
     def restore(self):
         for owner, attr, orig in reversed(self._undo):
             setattr(owner, attr, orig)
@@ -188,14 +212,19 @@ def stage_timer() -> StageTimer:
     from monocular_slam_tpu_torch.geometry import alignment
     from monocular_slam_tpu_torch.ops import features, hamming
     from monocular_slam_tpu_torch.optim import cg_ba, pose_graph
-    from monocular_slam_tpu_torch.slam import keyframes, local_ba, loop_closer, mapping, tracker
-    from monocular_slam_tpu_torch.utils import graph
+    from monocular_slam_tpu_torch.slam import keyframes, local_ba, loop_closer, mapping, session
+    from monocular_slam_tpu_torch.slam import tracker
 
     t = StageTimer()
-    t.wrap(graph.Program, "replay", "step program replays (track; mapping + detect)")
+    t.wrap_replays()
     t.wrap(features, "extract", "extract (K1 inside)")
     t.wrap(tracker, "track", "tracker.track")
     t.wrap(tracker, "bootstrap", "tracker.bootstrap")
+    t.wrap(session.SlamSession, "_untracked", "untracked frames (ingest; bootstrap)")
+    t.wrap(session.SlamSession, "_try_relocalize", "relocalization attempts")
+    t.wrap(session.SlamSession, "_cull_dispatch", "FrameCulling dispatch")
+    t.wrap(loop_closer.LoopCloser, "compute_sim3", "Sim3 (program and read)")
+    t.wrap(loop_closer.LoopCloser, "correct", "correction + global BA (programs and reads)")
     t.wrap(local_ba, "local_bundle_adjust", "local BA")
     t.wrap(mapping, "fuse", "mapping.fuse")
     t.wrap(mapping, "cull_points", "mapping.cull_points")
@@ -614,7 +643,10 @@ def cg_steps(smi: str) -> int:
             print(json.dumps({"pcg_steps_global_ba_pose_graph": steps,
                               **{k: out[k] for k in ("tracked", "ate_m", "fps", "closures",
                                                      "corrected", "closure_s_per_run")},
-                              "routes": {r: len(c) for r, c in out["routes"].items()}}),
+                              "routes": {f"{stage}_{route}": sum(r.get(stage) == route
+                                                                 for r in out["routes"])
+                                         for stage in ("pose_graph", "global_ba")
+                                         for route in ("dense", "cg")}}),
                   flush=True)
     finally:
         loop_closer.GLOBAL_BA_CG_ITERS, loop_closer.POSE_GRAPH_CG_ITERS = port

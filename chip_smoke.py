@@ -2,11 +2,13 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py program    # device, build, k3 and program only
+    python3 chip_smoke.py loop       # device, build and loop only (long: the same)
 
 Drives the port's main paths (`monocular_slam_tpu_torch`, no JAX) at the
 benchmark's full width and checks them. Every session runs its tracked
 frames through the captured step programs (`slam/session.py`: two CUDA
-graph replays a frame), except the program phase's op-by-op A/B run:
+graph replays a frame) and every other device stage through its captured
+program, except the op-by-op A/B runs of the program and loop phases:
 
   1. device   — requires CUDA; prints the card's name and power limit;
   2. build    — compiles K1 (`csrc/fast_score.cu`), K2
@@ -77,11 +79,26 @@ graph replays a frame), except the program phase's op-by-op A/B run:
                 ATE; with no closure and no relocalization the ATE must
                 equal the session phase's to 1e-4 m;
   9. loop     — a 112-frame course that revisits its start (max_frames 128),
-                with 8 frames of uniform noise after frame 40: at least one
-                closure with i - j >= 40, at least one relocalization attempt
-                that launched K2, tracked >= real frames - 6, ATE <= 10 cm on
-                the real frames, then a direct `tracker.relocalize` of the
-                last frame against its predecessor;
+                with 8 frames of uniform noise after frame 40, run through the
+                session's programs and again op by op (`run_loop(eager=True)`).
+                Each run: at least one closure with i - j >= 40, at least one
+                relocalization attempt that launched K2, tracked >= real
+                frames - 6, ATE <= 10 cm on the real frames. The two runs:
+                equal closures, corrections, reverted and skipped closures,
+                relocalization attempts and successes, culled keyframes,
+                keyframes and tracked flags, poses within TRAJ_TOL_M. The
+                programs' run: host reads (`HostReads`: sync-debug warnings
+                plus the programs' reads plus lagged waits) at most
+                CLOSURE_READS a closure by where it stopped, 1 plus 1 a
+                candidate a relocalization attempt, CULL_READS a
+                FrameCulling pass and BOOTSTRAP_READS a bootstrap attempt
+                (the op-by-op run's counts printed beside); K2 and svd3 in
+                every Sim3 replay, K2 and K3's eigh in every relocalization
+                candidate's, K3's eigh and svd3 in every bootstrap
+                attempt's; capture seconds, device ms a call and launches by
+                program kind, the graph pool's bytes. Then a direct
+                `tracker.relocalize` of the last frame against its
+                predecessor;
  10. scale    — the matrix-free solvers at benchmarks/kitti_scale.py's shapes
                 (numpy draws): a 10,000-keyframe drifted Sim3 graph with 100
                 loop edges through `pose_graph.optimize_cg` and the 1000-
@@ -118,11 +135,14 @@ graph replays a frame), except the program phase's op-by-op A/B run:
                 LONG_FRAMES frames, with the pose graph's dense/CG switch
                 at the reference's 128 keyframes (the port's default, 512,
                 is past this run): fails on a non-finite pose, below 95%
-                tracked, below 2 closures, if `optimize_cg` or
-                `bundle_adjust_cg` was never called, if no feature slot was
-                evicted, unless K1 launched once per frame and K2 at least
-                twice in every track call; reports ATE, fps, prewarm
-                seconds, each Sim3's seconds and the closure stages;
+                tracked, below 2 closures, if the closer's pose graph or
+                global BA never took its CG route (`LoopCloser.routes`), if
+                no feature slot was evicted, unless K1 launched once per
+                frame and K2 at least twice in every track call; reports
+                ATE, fps, prewarm seconds, each Sim3's seconds, the closure
+                stages, the keyframe buckets whose correction programs the
+                session still holds, and the programs as the loop phase
+                does;
  13. cli      — the port's CLI as a user runs it: the long run's course
                 (seed 19, 0.05 rad/frame) rendered on the card for
                 CLI_FRAMES frames, written as a TUM directory by
@@ -1020,10 +1040,158 @@ def _loop_frames(dev):
     return frames, real, poses_gt, k
 
 
+# host reads a program-driven event may make: (kind) -> limit, or, for a
+# relocalization attempt, 1 plus 1 a candidate
+CLOSURE_READS = {"sim3": 1, "valid": 2, "correction": 5}  # by where the closure stopped
+BOOTSTRAP_READS = 1
+CULL_READS = 1
+
+
+def program_summary(sess) -> dict:
+    """A session's programs outside the tracked step: calls, device ms
+    (events around each call) and kernel launches by program kind, the
+    capture seconds of each such program, and the graph pool's bytes."""
+    from monocular_slam_tpu_torch.ops import launches
+
+    by = {}
+    for c in sess.program_calls:
+        d = by.setdefault(c["kind"], {"calls": 0, "device_ms": 0.0,
+                                      "launches": dict.fromkeys(launches.KERNELS, 0)})
+        d["calls"] += 1
+        d["device_ms"] += c["ms"]
+        for n, v in c["launches"].items():
+            d["launches"][n] += v
+    for d in by.values():
+        d["ms_per_call"] = d["device_ms"] / d["calls"]
+    by_program = {}
+    for c in sess.program_calls:
+        name = "/".join(str(p) for p in c["key"] if not _is_object_id(p))
+        calls, ms = by_program.get(name, (0, 0.0))
+        by_program[name] = (calls + 1, ms + c["ms"])
+    pool = 0
+    if sess._pool is not None:
+        pool = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == tuple(sess._pool))
+    return {"by_kind": by, "graph_pool_bytes": pool, "programs": len(sess.capture_s),
+            "ms_per_call_by_program": {n: ms / calls for n, (calls, ms) in by_program.items()},
+            "capture_s": {"/".join(str(p) for p in key if not _is_object_id(p)): t
+                          for key, t in sess.capture_s.items() if key[0] not in ("track", "map")}}
+
+
+def program_nodes(sess) -> dict:
+    """Graph nodes of each program outside the tracked step, counted as the
+    device operations (kernels, copies, memsets) one replay puts on the
+    card (`torch.profiler`), after the run; the replays write the session's
+    state and database, which are put back."""
+    saved = [x.clone() for x in sess._state]
+    db = sess.loop_closer._db.clone() if sess.loop_closer is not None else None
+    out = {}
+    for key, prog in sess._graphs.programs.items():
+        if key[0] not in ("track", "map"):
+            name = "/".join(str(p) for p in key if not _is_object_id(p))
+            out[name] = device_ops(prog.replay)
+    for buf, x in zip(sess._state, saved):
+        buf.copy_(x)
+    if db is not None:
+        sess.loop_closer._db.copy_(db)
+    return out
+
+
+def _is_object_id(p) -> bool:
+    """A program key's `id()` of its closer (left out of printed names)."""
+    return isinstance(p, int) and not isinstance(p, bool) and p > 2**20
+
+
+class HostReads:
+    """Host reads inside the session's program-driven events, counted as the
+    program phase counts them: `set_sync_debug_mode` warnings (outside the
+    programs' captures, which are one-time builds and counted apart) plus
+    the programs' own reads (`graph.Readback`) plus lagged outcome reads
+    that waited. `wrap(owner, attr, kind)` records one event per call."""
+
+    def __init__(self):
+        from monocular_slam_tpu_torch.utils import graph
+
+        self.events: list[dict] = []
+        self.capture_syncs = 0
+        self._building = 0
+        self._undo = []
+        build = graph.Program.__init__
+
+        def building(prog, *a, **kw):
+            self._building += 1
+            try:
+                build(prog, *a, **kw)
+            finally:
+                self._building -= 1
+
+        graph.Program.__init__ = building
+        self._undo.append((graph.Program, "__init__", build))
+
+    def wrap(self, owner, attr: str, kind: str, info=None):
+        from monocular_slam_tpu_torch.slam import session as session_mod
+        from monocular_slam_tpu_torch.utils import graph
+
+        orig = getattr(owner, attr)
+
+        def counted(*a, **kw):
+            syncs = 0
+
+            def record(message, category, filename, lineno, file=None, line=None):
+                nonlocal syncs
+                if "synchroniz" not in str(message) or "prototype" in str(message):
+                    return
+                if self._building:
+                    self.capture_syncs += 1
+                else:
+                    syncs += 1
+
+            r0, w0 = graph.Readback.reads, session_mod.FrameStats.waits
+            cuda = torch.cuda.is_available()
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = record
+                if cuda:
+                    torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = orig(*a, **kw)
+                finally:
+                    if cuda:
+                        torch.cuda.set_sync_debug_mode("default")
+            ev = {"kind": kind, "syncs": syncs, "reads": graph.Readback.reads - r0,
+                  "waits": session_mod.FrameStats.waits - w0}
+            ev["total"] = ev["syncs"] + ev["reads"] + ev["waits"]
+            if info is not None:
+                ev.update(info(a, out))
+            self.events.append(ev)
+            return out
+
+        setattr(owner, attr, counted)
+        self._undo.append((owner, attr, orig))
+
+    def restore(self):
+        for owner, attr, orig in reversed(self._undo):
+            setattr(owner, attr, orig)
+        self._undo.clear()
+
+    def by_kind(self) -> dict:
+        out = {}
+        for ev in self.events:
+            d = out.setdefault(ev["kind"], {"events": 0, "max_total": 0, "sum_total": 0})
+            d["events"] += 1
+            d["max_total"] = max(d["max_total"], ev["total"])
+            d["sum_total"] += ev["total"]
+        return out
+
+
 def run_loop(frames, real, poses_gt, k, voc, label: str, eager: bool = False) -> dict:
+    """The loop course through the session's programs, or with `eager` the
+    same functions op by op on the card. Host reads are counted per
+    program-driven event (`HostReads`): each closure (and where it stopped),
+    relocalization attempt (and its candidates), FrameCulling dispatch and
+    application, and bootstrap attempt."""
     from monocular_slam_tpu_torch.eval import ate as ate_mod
     from monocular_slam_tpu_torch.ops import launches
-    from monocular_slam_tpu_torch.slam import tracker
     from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
     from monocular_slam_tpu_torch.slam.loop_closer import LoopCloser
     from monocular_slam_tpu_torch.slam.session import SlamSession
@@ -1034,17 +1202,39 @@ def run_loop(frames, real, poses_gt, k, voc, label: str, eager: bool = False) ->
     lc = LoopCloser(voc, cfg, device=dev)
     sess = SlamSession(cfg, seed=1, run_ba=True, loop_closer=lc, device=dev)
     sess._use_graphs = not eager  # the same functions op by op with `eager`
-    reloc_k2 = []  # K2 launches inside each relocalization attempt
-    plain_reloc = tracker.relocalize
-
-    def counted_reloc(*a, **kw):
-        before = launches.count("hamming_top2")
-        res = plain_reloc(*a, **kw)
-        reloc_k2.append(launches.count("hamming_top2") - before)
-        return res
-
     sess.prewarm(image=True)
-    tracker.relocalize = counted_reloc
+    reads = HostReads()
+
+    seen = {"routes": 0, "valid": 0}
+    plain_valid = lc._valid_frames
+
+    def counted_valid(*a, **kw):
+        seen["valid"] += 1
+        return plain_valid(*a, **kw)
+
+    lc._valid_frames = counted_valid
+
+    def closure_info(a, out):
+        """Where the closure stopped: after its Sim3 (no Sim3, or the
+        near-identity gate), at the frames' validity, or after the
+        correction."""
+        stop = ("correction" if len(lc.routes) > seen["routes"] else
+                "valid" if seen["valid"] > seen.get("valid_then", 0) else "sim3")
+        seen["routes"], seen["valid_then"] = len(lc.routes), seen["valid"]
+        return {"stopped_at": stop}
+
+    def reloc_info(a, out):
+        n = sess.reloc_attempts - reloc_info.n
+        reloc_info.n = sess.reloc_attempts
+        return {"candidates": n}
+
+    reloc_info.n = 0
+    reads.wrap(lc, "close", "closure", closure_info)
+    reads.wrap(sess, "_try_relocalize", "relocalization", reloc_info)
+    reads.wrap(sess, "_cull_dispatch", "cull_dispatch")
+    reads.wrap(sess, "_cull_apply", "cull_apply")
+    reads.wrap(sess, "_untracked", "untracked_frame",
+               lambda a, out: {"bootstrap": out.frame > 0})
     launches.reset()
     try:
         _sync(dev)
@@ -1055,28 +1245,88 @@ def run_loop(frames, real, poses_gt, k, voc, label: str, eager: bool = False) ->
         _sync(dev)
         wall = time.perf_counter() - t0
     finally:
-        tracker.relocalize = plain_reloc
+        reads.restore()
     counted = launches.read()
     steps = sess.step_launches
+    calls = sess.program_calls
     poses, valid, _ = sess.trajectory()
     rv = valid[real]
     r = ate_mod.ate(poses[real][rv], poses_gt[rv])
     out = {
-        "vocabulary": label, "frames": int(frames.shape[0]), "real_frames": len(real),
+        "vocabulary": label, "route": "op by op" if eager else "programs",
+        "frames": int(frames.shape[0]), "real_frames": len(real),
         "tracked_real": int(rv.sum()), "tracked_noise": int(valid.sum() - rv.sum()),
-        "ate_m": r.rmse, "fps": frames.shape[0] / wall, "closures": lc.closures,
+        "ate_m": r.rmse, "fps": frames.shape[0] / wall, "wall_s": wall, "closures": lc.closures,
         "corrected": lc.corrected, "skipped_identity": lc.skipped_identity,
         "reverted": lc.reverted, "culled_keyframes": sorted(sess._kf_culled),
-        "keyframes": len(sess.keyframes), "reloc_attempts": sess.reloc_attempts,
-        "reloc_successes": sess.reloc_successes, "k2_in_reloc": reloc_k2,
+        "keyframes": len(sess.keyframes), "keyframe_list": sess.keyframes,
+        "reloc_attempts": sess.reloc_attempts, "reloc_successes": sess.reloc_successes,
+        "k2_in_reloc": [c["launches"]["hamming_top2"] for c in calls if c["kind"] == "relocalize"],
         "k1_launches": counted["corner_maps"], "k2_launches": counted["hamming_top2"],
+        "launches": counted,
         "step_min": {n: min((c[n] for c in steps), default=0) for n in launches.KERNELS},
-        "timings_s": lc.timings,
+        "timings_s": lc.timings, "routes": lc.routes,
+        "host_reads": reads.events, "host_reads_by_kind": reads.by_kind(),
+        "capture_syncs": reads.capture_syncs,
+        "program_launches": [(c["kind"], c["launches"]) for c in calls],
+        "programs": program_summary(sess),
+        "tracked_flags": [bool(s.tracked) for s in sess.stats],
+        "poses": poses, "valid": valid,
     }
     return out, sess
 
 
+def _loop_checks(out, real) -> list:
+    """The loop phase's limits on one run."""
+    fails = []
+    if not any(i - j >= 40 for i, j in out["closures"]):
+        fails.append(f"no closure with i - j >= 40: {out['closures']}")
+    if out["reloc_attempts"] < 1 or not any(n > 0 for n in out["k2_in_reloc"]):
+        fails.append(f"no relocalization attempt that launched K2: {out['k2_in_reloc']}")
+    if out["tracked_real"] < len(real) - 6:
+        fails.append(f"tracked {out['tracked_real']} of {len(real)} real frames")
+    if not out["ate_m"] <= LOOP_MAX_ATE_M:
+        fails.append(f"ATE {out['ate_m']} m > {LOOP_MAX_ATE_M} m")
+    if out["k1_launches"] < out["frames"]:
+        fails.append(f"K1 launched {out['k1_launches']} times, < 1 per frame")
+    return fails
+
+
+def _program_checks(out) -> list:
+    """Host reads a program-driven event and the kernels inside every Sim3,
+    relocalization candidate and bootstrap replay."""
+    fails = []
+    for ev in out["host_reads"]:
+        k, n = ev["kind"], ev["total"]
+        if k == "closure" and n > CLOSURE_READS[ev["stopped_at"]]:
+            fails.append(f"a closure stopped at {ev['stopped_at']} read the card {n} times")
+        if k == "relocalization" and n > 1 + ev["candidates"]:
+            fails.append(f"a relocalization attempt of {ev['candidates']} candidates read {n} times")
+        if k in ("cull_dispatch", "cull_apply") and n > (0 if k == "cull_dispatch" else CULL_READS):
+            fails.append(f"{k} read the card {n} times")
+        if k == "untracked_frame" and n > (BOOTSTRAP_READS if ev["bootstrap"] else 0):
+            fails.append(f"an untracked frame (bootstrap {ev['bootstrap']}) read the card {n} times")
+    need = {"sim3": ("hamming_top2", "svd3"), "relocalize": ("hamming_top2", "small_eigh"),
+            "bootstrap": ("small_eigh", "svd3")}
+    for kind, c in out["program_launches"]:
+        if kind in need and any(c[n] < 1 for n in need[kind]):
+            fails.append(f"a {kind} replay launched {c}, not {need[kind]}")
+    for kind in need:
+        if not any(k == kind for k, _ in out["program_launches"]):
+            fails.append(f"no {kind} program ran")
+    return fails
+
+
+AB_FIELDS = ("closures", "corrected", "skipped_identity", "reverted", "reloc_attempts",
+             "reloc_successes", "culled_keyframes", "keyframes", "keyframe_list", "tracked_flags")
+
+
 def phase_loop(dev="cuda") -> dict:
+    """The loop course through the programs and op by op (the A/B): equal
+    outcomes, poses within TRAJ_TOL_M, both runs within the phase's limits;
+    the programs' host reads and kernel launches checked; capture seconds,
+    ms a call, the graph pool's bytes and the stage split of both routes
+    reported."""
     from monocular_slam_tpu_torch.ops import features
     from monocular_slam_tpu_torch.retrieval import vocabulary
     from monocular_slam_tpu_torch.slam import tracker
@@ -1086,8 +1336,8 @@ def phase_loop(dev="cuda") -> dict:
     frames, real, poses_gt, k = _loop_frames(torch.device(dev))
     log(f"[loop] rendered {LOOP_FRAMES} frames + {BLACKOUT} noise frames in "
         f"{time.perf_counter() - t0:.2f} s")
-    out, sess = run_loop(frames, real, poses_gt, k, vocabulary.load_default(dev), "bundled")
-    log("[loop] " + json.dumps(out))
+    voc = vocabulary.load_default(dev)
+    out, sess = run_loop(frames, real, poses_gt, k, voc, "bundled")
     if not any(i - j >= 40 for i, j in out["closures"]):
         # the reference's e2e test trains on the course itself (k=8, L=4)
         descs = []
@@ -1096,29 +1346,46 @@ def phase_loop(dev="cuda") -> dict:
             descs.append(f.desc_pm1[f.valid].cpu().numpy())
         voc = vocabulary.train(np.concatenate(descs), k=8, L=4, seed=0, device=dev)
         out, sess = run_loop(frames, real, poses_gt, k, voc, "trained k=8 L=4 on the course")
-        log("[loop] no closure with the bundled vocabulary; retrained: " + json.dumps(out))
-    if not any(i - j >= 40 for i, j in out["closures"]):
-        raise AssertionError(f"loop: no closure with i - j >= 40: {out['closures']}")
-    if out["reloc_attempts"] < 1 or not any(n > 0 for n in out["k2_in_reloc"]):
-        raise AssertionError(f"loop: no relocalization attempt that launched K2: {out['k2_in_reloc']}")
-    if out["tracked_real"] < len(real) - 6:
-        raise AssertionError(f"loop: tracked {out['tracked_real']} of {len(real)} real frames")
-    if not out["ate_m"] <= LOOP_MAX_ATE_M:
-        raise AssertionError(f"loop: ATE {out['ate_m']} m > {LOOP_MAX_ATE_M} m")
-    if out["k1_launches"] < out["frames"]:
-        raise AssertionError(f"loop: K1 launched {out['k1_launches']} times, < 1 per frame")
+        log("[loop] no closure with the bundled vocabulary; retrained")
+    eager, _ = run_loop(frames, real, poses_gt, k, voc, out["vocabulary"], eager=True)
+    v = out["valid"] & eager["valid"]
+    diff = float(np.abs(out["poses"][v] - eager["poses"][v]).max())
+    unequal = [f for f in AB_FIELDS if out[f] != eager[f]]
+    hidden = ("poses", "valid", "tracked_flags", "keyframe_list", "host_reads", "program_launches")
+    for o in (out, eager):
+        log("[loop] " + json.dumps({n: v for n, v in o.items() if n not in hidden}))
+    log("[loop] host reads by event, programs: " + json.dumps(out["host_reads_by_kind"])
+        + "; op by op: " + json.dumps(eager["host_reads_by_kind"]))
+    log("[loop] programs: " + json.dumps(out["programs"]))
+    log("[loop] stage split (device ms by program kind; wall s): programs "
+        + json.dumps({kd: round(d["device_ms"], 3) for kd, d in out["programs"]["by_kind"].items()})
+        + f" of {out['wall_s']:.3f} s; op by op "
+        + json.dumps({kd: round(d["device_ms"], 3) for kd, d in eager["programs"]["by_kind"].items()})
+        + f" of {eager['wall_s']:.3f} s")
+    fails = [f"programs: {m}" for m in _loop_checks(out, real) + _program_checks(out)]
+    fails += [f"op by op: {m}" for m in _loop_checks(eager, real)]
+    if unequal or not diff <= TRAJ_TOL_M:
+        fails.append(f"programs vs op by op: unequal {unequal}, max pose difference {diff} m")
     last = frames.shape[0] - 1
     with torch.inference_mode():
         res = tracker.relocalize(sess.state, last, last - 1, prng.PRNGKey(11), sess.cfg)
     ok, n = bool(res.ok), int(res.n_inliers)
     log(f"[loop] closures {out['closures']}, corrected {out['corrected']}, skipped-identity "
-        f"{out['skipped_identity']}, culled keyframes {len(out['culled_keyframes'])}, "
-        f"relocalization {out['reloc_successes']}/{out['reloc_attempts']} attempts succeeded, "
-        f"K2 launches {out['k2_launches']}, tracked {out['tracked_real']}/{len(real)} real frames, "
-        f"ATE {out['ate_m'] * 100:.3f} cm, {out['fps']:.2f} fps; direct relocalize of frame "
+        f"{out['skipped_identity']}, reverted {out['reverted']}, culled keyframes "
+        f"{len(out['culled_keyframes'])}, relocalization {out['reloc_successes']}/"
+        f"{out['reloc_attempts']} attempts succeeded, K2 launches {out['k2_launches']}, tracked "
+        f"{out['tracked_real']}/{len(real)} real frames, ATE {out['ate_m'] * 100:.3f} cm, "
+        f"{out['fps']:.2f} fps (op by op {eager['fps']:.2f}); programs = op by op in every "
+        f"outcome: {not unequal}, max pose difference {diff:.3g} m; direct relocalize of frame "
         f"{last} against {last - 1}: ok {ok}, {n} inliers")
     if not ok or n < sess.cfg.track.reloc_min_inliers:
-        raise AssertionError(f"loop: direct relocalize failed ({ok}, {n} inliers)")
+        fails.append(f"direct relocalize failed ({ok}, {n} inliers)")
+    if fails:
+        raise AssertionError("loop: " + "; ".join(fails))
+    out["max_pose_diff_vs_op_by_op_m"] = diff
+    out["op_by_op"] = {n: eager[n] for n in ("fps", "wall_s", "host_reads_by_kind", "programs")}
+    log("[loop] graph nodes a program (device operations of one replay, after the run): "
+        + json.dumps(program_nodes(sess)))
     return out, sess
 
 
@@ -1697,11 +1964,12 @@ def run_long(n: int, dev="cuda") -> tuple[dict, object]:
     before frame 0); 1000 continuous-steered features, 256 slots,
     max_points 30000, max_frames n + 32, the bundled vocabulary, min_gap
     and cooldown 60. K1 and K2 are counted from 0 after the prewarm; the
-    solver routes of the loop closer and each Sim3 are recorded."""
+    loop closer's routes (`LoopCloser.routes`: the pose graph's and global
+    BA's, dense or CG, each with its keyframe bucket and chi2), each Sim3's
+    seconds and the session's programs are recorded."""
     from monocular_slam_tpu_torch.datasets import render
     from monocular_slam_tpu_torch.eval import ate as ate_mod
     from monocular_slam_tpu_torch.ops import launches
-    from monocular_slam_tpu_torch.optim import cg_ba, pose_graph
     from monocular_slam_tpu_torch.retrieval import vocabulary
     from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
     from monocular_slam_tpu_torch.slam.loop_closer import LoopCloser, LoopClosureConfig
@@ -1721,7 +1989,6 @@ def run_long(n: int, dev="cuda") -> tuple[dict, object]:
     sess = SlamSession(cfg, seed=0, run_ba=True, loop_closer=lc, device=dev)
     prewarm_s = sess.prewarm(image=True, buffer=buf)
 
-    routes = {"optimize": [], "optimize_cg": [], "bundle_adjust_cg": []}
     sim3_s, closes = [], []
     undo = []
 
@@ -1733,15 +2000,6 @@ def run_long(n: int, dev="cuda") -> tuple[dict, object]:
 
         setattr(owner, attr, wrapped)
         undo.append((owner, attr, orig))
-
-    def solve(name, size):
-        def record(orig, x, *a, **kw):
-            res = orig(x, *a, **kw)
-            routes[name].append({"frame": sess._next - 1, "size": size(x),
-                                 "chi2": [float(res.chi2_initial), float(res.chi2_history[-1])],
-                                 "lm_iters_run": int(res.n_iters_run)})
-            return res
-        return record
 
     def close(orig, state, i, j, *a, **kw):
         state, closed = orig(state, i, j, *a, **kw)
@@ -1758,9 +2016,6 @@ def run_long(n: int, dev="cuda") -> tuple[dict, object]:
         sim3_s.append(time.perf_counter() - t)
         return res
 
-    wrap(pose_graph, "optimize", solve("optimize", lambda g: int(g.vertices.shape[0])))
-    wrap(pose_graph, "optimize_cg", solve("optimize_cg", lambda g: int(g.vertices.shape[0])))
-    wrap(cg_ba, "bundle_adjust_cg", solve("bundle_adjust_cg", lambda p: int(p.valid.sum())))
     wrap(lc, "compute_sim3", timed_sim3)
     wrap(lc, "close", close)
     launches.reset()
@@ -1802,12 +2057,15 @@ def run_long(n: int, dev="cuda") -> tuple[dict, object]:
         "corrected": lc.corrected, "skipped_identity": lc.skipped_identity,
         "reverted": lc.reverted, "keyframes_promoted": len(sess._keyframes),
         "keyframes_live": len(sess.keyframes), "frames_evicted": int((sess.state.slot_of[:n] < 0).sum()),
-        "routes": routes, "reloc_attempts": sess.reloc_attempts,
+        "routes": lc.routes, "reloc_attempts": sess.reloc_attempts,
         "reloc_successes": sess.reloc_successes, "k1_launches": k1, "k2_launches": k2,
         "track_calls": len(steps),
         "step_min": {n: min((c[n] for c in steps), default=0) for n in launches.KERNELS},
         "sim3_s": sim3_s, "close_calls": closes, "closure_timings_s": lc.timings,
         "closure_s_per_run": {s: lc.timings[s] / nr for s in ("sim3", "pose_graph", "global_ba")},
+        "programs": program_summary(sess),
+        "correction_buckets_held": sorted({key[1] for key in sess._graphs.programs
+                                           if key[0] == "correct"}) if sess._graphs else [],
     }
     return out, sess
 
@@ -1830,15 +2088,19 @@ def reference_pose_graph_switch():
 
 def phase_long() -> dict:
     with reference_pose_graph_switch():
-        out, _ = run_long(LONG_FRAMES)
+        out, sess = run_long(LONG_FRAMES)
     log("[long] " + json.dumps(out))
+    log("[long] graph nodes a program (device operations of one replay, after the run): "
+        + json.dumps(program_nodes(sess)))
     n = out["frames"]
     log(f"[long] {n} frames: tracked {out['tracked']}, ATE {out['ate_m'] * 100:.2f} cm "
         f"(max |det R - 1| {out['max_rotation_det_dev']:.2g}), "
         f"{out['fps']:.2f} fps ({out['fps_50_on']:.2f} from frame 50), prewarm "
         f"{out['prewarm_s']:.2f} s, closures {out['closures']}, first Sim3 "
         f"{out['sim3_s'][0] if out['sim3_s'] else float('nan'):.3f} s, routes "
-        f"{ {r: len(c) for r, c in out['routes'].items()} }, evicted {out['frames_evicted']}, "
+        f"{[(r['K_pad'], r['pose_graph'], r.get('global_ba')) for r in out['routes']]}, "
+        f"correction programs held for K_pad {out['correction_buckets_held']}, "
+        f"evicted {out['frames_evicted']}, "
         f"K1 {out['k1_launches']}, K2 {out['k2_launches']} in {out['track_calls']} track calls")
     if out["nonfinite_poses"]:
         raise AssertionError(f"long: {out['nonfinite_poses']} non-finite poses")
@@ -1846,7 +2108,8 @@ def phase_long() -> dict:
         raise AssertionError(f"long: tracked {out['tracked']} < 95% of {n}")
     if len(out["closures"]) < 2:
         raise AssertionError(f"long: {len(out['closures'])} closures < 2")
-    if not out["routes"]["optimize_cg"] or not out["routes"]["bundle_adjust_cg"]:
+    if not (any(r["pose_graph"] == "cg" for r in out["routes"])
+            and any(r.get("global_ba") == "cg" for r in out["routes"])):
         raise AssertionError(f"long: a CG route was never taken: {out['routes']}")
     if out["frames_evicted"] < 1:
         raise AssertionError("long: no feature slot was evicted")
@@ -2035,26 +2298,37 @@ def main() -> int:
     win = k2[WINDOW]
     log(f"[done] all phases passed in {time.perf_counter() - t0:.1f} s; loop K1 launches "
         f"{loop['k1_launches']}, K2 launches {loop['k2_launches']}")
+
+    def on_loop(kernel):
+        """A kernel's launches in the loop phase's run through the programs:
+        all of them, and those inside each kind of program outside the
+        tracked step (Sim3, relocalization, bootstrap, ...)."""
+        return {"launches_loop": loop["launches"][kernel],
+                "launches_loop_programs": {kd: d["launches"][kernel] for kd, d in
+                                           loop["programs"]["by_kind"].items()
+                                           if d["launches"][kernel]}}
+
     log(json.dumps({"kernels": [
         {"name": "fast_corner_maps_levels", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES, "launches": res["k1_launches"],
          "launches_cli": cli["kernel_launches"]["fast_corner_maps_levels"],
+         **on_loop("corner_maps"),
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None},
         {"name": "hamming_top2", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": res["k2_launches"],
-         "launches_cli": cli["kernel_launches"]["hamming_top2"],
+         "launches_cli": cli["kernel_launches"]["hamming_top2"], **on_loop("hamming_top2"),
          "max_abs_err": max(r["max_abs_err"] for r in k2.values()), "ms": win["ms"],
          "plain_ms": win["plain_ms"], "bound_ms": win["bound_ms"], "bound_by": win["bound_by"],
          "library_ms": None},
         {"name": "small_eigh", "route": "cuda", "source": K3_SOURCE,
-         "replaces": K3_REPLACES, "launches": res["k3_launches"],
+         "replaces": K3_REPLACES, "launches": res["k3_launches"], **on_loop("small_eigh"),
          "max_abs_err": max(k3[n]["max_abs_err"] for n in k3 if n.startswith("eigh")),
          **{f: k3["eigh (1000, 4, 4)"][f] for f in K3_FIELDS},
          "shapes": {n: {f: k3[n][f] for f in K3_FIELDS + ("device_ms",)}
                     for n in k3 if n.startswith("eigh")}},
         {"name": "svd3", "route": "cuda", "source": K3_SOURCE,
-         "replaces": K3_SVD_REPLACES, "launches": res["k3_svd_launches"],
+         "replaces": K3_SVD_REPLACES, "launches": res["k3_svd_launches"], **on_loop("svd3"),
          "max_abs_err": max(k3[n]["max_abs_err"] for n in k3 if n.startswith("svd3")),
          **{f: k3["svd3 (1, 3, 3)"][f] for f in K3_FIELDS},
          "shapes": {n: {f: k3[n][f] for f in K3_FIELDS + ("device_ms",)}
@@ -2081,6 +2355,19 @@ def main_program() -> int:
     return 0
 
 
+def main_phase(name: str) -> int:
+    """`python3 chip_smoke.py loop` or `long`: the build and that phase
+    alone."""
+    phase_device()
+    phase_build()
+    if name == "loop":
+        phase_loop()
+    else:
+        phase_long()
+    log(f"[done] {name} phase passed")
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["dist-rank"]:
         sys.exit(dist_rank())
@@ -2091,4 +2378,6 @@ if __name__ == "__main__":
     from monocular_slam_tpu_torch.utils.device import apply_precision_policy
 
     apply_precision_policy()
+    if sys.argv[1:] in (["loop"], ["long"]):
+        sys.exit(main_phase(sys.argv[1]))
     sys.exit(main_program() if sys.argv[1:] == ["program"] else main())

@@ -5,7 +5,9 @@ RANSAC hypotheses are one batch (3-point Horn fits), as in the reference.
 The draws are the reference's, made from a host key (`epipolar._sample_indices`);
 `u` takes the uniforms themselves. The Gauss-Newton polish differentiates the dual
 reprojection residual with `torch.func.jacfwd`, as the reference does with
-`jax.jacfwd`.
+`jax.jacfwd`. On a card the 3x3 SVD of every Horn fit is K3's `svd3` and
+its determinant the closed form, neither of which waits on the host, so a
+Sim3 RANSAC can run inside a CUDA graph; the CPU keeps `torch.linalg`.
 """
 
 from __future__ import annotations
@@ -18,7 +20,9 @@ from monocular_slam_tpu_torch.geometry import camera as cam
 from monocular_slam_tpu_torch.geometry import se3
 from monocular_slam_tpu_torch.geometry import sim3 as sim3_mod
 from monocular_slam_tpu_torch.geometry.epipolar import _sample_indices
+from monocular_slam_tpu_torch.ops import small_eigh
 from monocular_slam_tpu_torch.utils import autodiff
+from monocular_slam_tpu_torch.utils.linalg import det3x3
 from monocular_slam_tpu_torch.utils.scatter import take
 
 _EPS = 1e-12
@@ -36,8 +40,8 @@ def horn_sim3(X: torch.Tensor, Y: torch.Tensor, w: torch.Tensor | None = None,
     xc = X - mu_x
     yc = Y - mu_y
     cov = ((yc * wn[..., None])[..., :, :, None] * xc[..., :, None, :]).sum(-3)
-    U, D, Vt = torch.linalg.svd(cov)
-    det = torch.linalg.det(U @ Vt)
+    U, D, Vt = small_eigh.svd3(cov)
+    det = det3x3(U @ Vt) if cov.is_cuda else torch.linalg.det(U @ Vt)
     S_diag = torch.cat([torch.ones(cov.shape[:-2] + (2,), dtype=X.dtype, device=X.device),
                         det[..., None]], dim=-1)
     R = (U * S_diag[..., None, :]) @ Vt

@@ -6,7 +6,9 @@ nullspace solve, one Sampson evaluation, one argmax. The draws are the
 reference's: `_sample_indices` makes `jax.random.uniform(key, ...)`'s
 uniforms on the mask's device (`prng.uniform_on`) from a host key. Every
 RANSAC entry also takes the uniforms themselves as `u` (then `key` may be
-None).
+None). On a card the 3x3 SVDs (the rank-2 projection, the essential
+decomposition) are K3's `svd3` and their determinants the closed form, so
+the bootstrap runs inside a CUDA graph; the CPU keeps `torch.linalg`.
 """
 
 from __future__ import annotations
@@ -17,8 +19,9 @@ import torch
 
 from monocular_slam_tpu_torch.geometry import camera as cam
 from monocular_slam_tpu_torch.geometry import se3, triangulate
+from monocular_slam_tpu_torch.ops import small_eigh
 from monocular_slam_tpu_torch.utils import prng
-from monocular_slam_tpu_torch.utils.linalg import gram, nullspace_vector
+from monocular_slam_tpu_torch.utils.linalg import det3x3, gram, nullspace_vector
 from monocular_slam_tpu_torch.utils.scatter import take, topk_stable
 
 _EPS = 1e-12
@@ -68,7 +71,7 @@ def eight_point(uv1, uv2, weights=None, solver: str = "eigh") -> torch.Tensor:
     A = _constraint_rows(uv1n, uv2n) * weights[..., None]
     f = nullspace_vector(gram(A), method=solver)
     F = f.reshape(f.shape[:-1] + (3, 3))
-    U, S, Vt = torch.linalg.svd(F)
+    U, S, Vt = small_eigh.svd3(F)
     S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], dim=-1)
     F = (U * S[..., None, :]) @ Vt
     F = T2.transpose(-1, -2) @ F @ T1
@@ -140,13 +143,22 @@ def essential_from_fundamental(F, k1, k2) -> torch.Tensor:
     return K2.transpose(-1, -2) @ F @ K1
 
 
+def _w_matrix(dtype, device) -> torch.Tensor:
+    """[[0, -1, 0], [1, 0, 0], [0, 0, 1]], made on the device from the
+    identity's rows (no copy from the host)."""
+    e = torch.eye(3, dtype=dtype, device=device)
+    return torch.stack([-e[1], e[0], e[2]])
+
+
 def decompose_essential(E: torch.Tensor):
-    """(R1, R2, t) with det(R) = +1."""
-    U, _, Vt = torch.linalg.svd(E)
-    U = U * torch.where(torch.linalg.det(U) < 0, -1.0, 1.0).to(E.dtype)
-    Vt = Vt * torch.where(torch.linalg.det(Vt) < 0, -1.0, 1.0).to(E.dtype)
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
+    """(R1, R2, t) with det(R) = +1. The SVD's singular vectors may differ
+    from LAPACK's in sign, and in the basis of E's repeated singular value;
+    that only swaps R1 and R2, which the cheirality test ranks alike."""
+    U, _, Vt = small_eigh.svd3(E)
+    det = det3x3 if E.is_cuda else torch.linalg.det
+    U = U * torch.where(det(U) < 0, -1.0, 1.0).to(E.dtype)
+    Vt = Vt * torch.where(det(Vt) < 0, -1.0, 1.0).to(E.dtype)
+    W = _w_matrix(E.dtype, E.device)
     R1 = U @ W @ Vt
     R2 = U @ W.T @ Vt
     t = U[..., :, 2]

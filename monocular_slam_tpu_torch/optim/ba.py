@@ -6,7 +6,8 @@ a dense Schur complement (counterpart of `BAProblem`, `_edge_weights`,
 The reference's `lax.scan` over iterations with a `lax.cond` freeze becomes
 a Python loop whose every decision is a `torch.where`: once the stall rule
 fires, later iterations still compute a step but keep nothing of it. So an
-LM solve adds no host sync. The linearization and Schur solve are plugged
+LM solve adds no host sync. The loop's body is `bundle_adjust_step`, which
+the loop closer's captured CG global BA replays once per iteration. The linearization and Schur solve are plugged
 in: the edge-list engine here by default, the observation grid of
 `optim/window_ba.py` for local BA.
 
@@ -161,17 +162,27 @@ def _schur_solve(prob: BAProblem, lin, lam, reduce=lm.no_reduce):
     return dxp, dxl, b_red.reshape(F, 6)
 
 
-def bundle_adjust(prob, n_iters: int = FULL_BA_ITER, delta: float = THRESH_HUBER_FULL_BA,
-                  tau: float = 1e-5, solve_fn=None, linearize_fn=None) -> BAResult:
-    """LM over `prob` with one linearization per iteration, carried across
-    iterations and replaced only when a step is accepted.
-    linearize_fn(prob, poses, points, delta) -> dict(chi2, Hpp, Hll, bp, bl,
-    W_e); solve_fn(prob, lin, lam) -> (dxp (F, 6), dxl (P, 3), b_red).
-    Both default to the edge-list engine above."""
-    if solve_fn is None:
-        solve_fn = _schur_solve
-    if linearize_fn is None:
-        linearize_fn = _linearize_graph
+class BACarry(NamedTuple):
+    """What one LM iteration of `bundle_adjust` hands the next: the
+    estimates, their linearization (with its segment plans) and the LM
+    state."""
+
+    poses: torch.Tensor
+    points: torch.Tensor
+    lin: dict
+    st: lm.LMState
+
+
+def _engines(solve_fn, linearize_fn):
+    return (_schur_solve if solve_fn is None else solve_fn,
+            _linearize_graph if linearize_fn is None else linearize_fn)
+
+
+def bundle_adjust_start(prob, delta: float = THRESH_HUBER_FULL_BA, tau: float = 1e-5,
+                        linearize_fn=None) -> BACarry:
+    """`bundle_adjust`'s first linearization: the carry before its first LM
+    iteration (its `lin["chi2"]` is the initial chi2)."""
+    _, linearize_fn = _engines(None, linearize_fn)
     dtype = prob.poses.dtype
     dev = prob.poses.device
     lin = linearize_fn(prob, prob.poses, prob.points, delta)
@@ -179,39 +190,61 @@ def bundle_adjust(prob, n_iters: int = FULL_BA_ITER, delta: float = THRESH_HUBER
         torch.diagonal(lin["Hpp"], dim1=-2, dim2=-1).reshape(-1),
         torch.diagonal(lin["Hll"], dim1=-2, dim2=-1).reshape(-1),
     ])
-    chi2_init = lin["chi2"]
     st = lm.LMState(
         lm.init_lambda(diag0, tau), torch.full((), 2.0, dtype=dtype, device=dev),
         lin["chi2"], torch.zeros((), dtype=torch.int32, device=dev),
         torch.zeros((), dtype=torch.bool, device=dev),
     )
-    poses, points = prob.poses, prob.points
+    return BACarry(prob.poses, prob.points, lin, st)
+
+
+def bundle_adjust_step(prob, carry: BACarry, delta: float = THRESH_HUBER_FULL_BA, solve_fn=None,
+                       linearize_fn=None) -> tuple[BACarry, torch.Tensor]:
+    """One LM iteration of `bundle_adjust`: the loop's body, which the loop
+    closer's captured program replays `n_iters` times with the carry in
+    static buffers. Returns (carry, accepted)."""
+    solve_fn, linearize_fn = _engines(solve_fn, linearize_fn)
+    poses, points, lin, st = carry
+    dxp, dxl, _ = solve_fn(prob, lin, st.lam)
+    poses_new = se3.compose(se3.exp(dxp), poses)
+    points_new = points + dxl
+    lin_new = linearize_fn(prob, poses_new, points_new, delta)
+    chi2_new = lin_new["chi2"]
+    dx_all = torch.cat([dxp.reshape(-1), dxl.reshape(-1)])
+    b_all = torch.cat([lin["bp"].reshape(-1), lin["bl"].reshape(-1)])
+    rho = lm.gain_ratio(lin["chi2"], chi2_new, dx_all, b_all, st.lam)
+    accept = (chi2_new < lin["chi2"]) & torch.isfinite(chi2_new) & ~st.done
+    lam_new, nu_new = lm.lm_step_accept(st.lam, st.nu, rho, accept)
+    stall = accept & (lin["chi2"] - chi2_new < 1e-6 * lin["chi2"])
+    poses = torch.where(accept, poses_new, poses)
+    points = torch.where(accept, points_new, points)
+    lin = keep_where(accept, lin_new, lin)
+    st = lm.LMState(
+        torch.where(st.done, st.lam, lam_new),
+        torch.where(st.done, st.nu, nu_new),
+        lin["chi2"], st.it + 1, st.done | stall,
+    )
+    return BACarry(poses, points, lin, st), accept
+
+
+def bundle_adjust(prob, n_iters: int = FULL_BA_ITER, delta: float = THRESH_HUBER_FULL_BA,
+                  tau: float = 1e-5, solve_fn=None, linearize_fn=None) -> BAResult:
+    """LM over `prob` with one linearization per iteration, carried across
+    iterations and replaced only when a step is accepted:
+    `bundle_adjust_start`, then `bundle_adjust_step` n_iters times.
+    linearize_fn(prob, poses, points, delta) -> dict(chi2, Hpp, Hll, bp, bl,
+    W_e); solve_fn(prob, lin, lam) -> (dxp (F, 6), dxl (P, 3), b_red).
+    Both default to the edge-list engine above."""
+    carry = bundle_adjust_start(prob, delta, tau, linearize_fn)
+    chi2_init = carry.lin["chi2"]
     chi2_h, lam_h, acc_h = [], [], []
     for _ in range(n_iters):
-        dxp, dxl, _ = solve_fn(prob, lin, st.lam)
-        poses_new = se3.compose(se3.exp(dxp), poses)
-        points_new = points + dxl
-        lin_new = linearize_fn(prob, poses_new, points_new, delta)
-        chi2_new = lin_new["chi2"]
-        dx_all = torch.cat([dxp.reshape(-1), dxl.reshape(-1)])
-        b_all = torch.cat([lin["bp"].reshape(-1), lin["bl"].reshape(-1)])
-        rho = lm.gain_ratio(lin["chi2"], chi2_new, dx_all, b_all, st.lam)
-        accept = (chi2_new < lin["chi2"]) & torch.isfinite(chi2_new) & ~st.done
-        lam_new, nu_new = lm.lm_step_accept(st.lam, st.nu, rho, accept)
-        stall = accept & (lin["chi2"] - chi2_new < 1e-6 * lin["chi2"])
-        poses = torch.where(accept, poses_new, poses)
-        points = torch.where(accept, points_new, points)
-        lin = keep_where(accept, lin_new, lin)
-        st = lm.LMState(
-            torch.where(st.done, st.lam, lam_new),
-            torch.where(st.done, st.nu, nu_new),
-            lin["chi2"], st.it + 1, st.done | stall,
-        )
-        chi2_h.append(st.chi2)
-        lam_h.append(st.lam)
+        carry, accept = bundle_adjust_step(prob, carry, delta, solve_fn, linearize_fn)
+        chi2_h.append(carry.st.chi2)
+        lam_h.append(carry.st.lam)
         acc_h.append(accept)
-    return BAResult(poses, points, chi2_init, torch.stack(chi2_h),
-                    torch.stack(lam_h), torch.stack(acc_h), st.it)
+    return BAResult(carry.poses, carry.points, chi2_init, torch.stack(chi2_h),
+                    torch.stack(lam_h), torch.stack(acc_h), carry.st.it)
 
 
 def global_bundle_adjust(prob: BAProblem, n_iters: int = FULL_BA_ITER) -> BAResult:
@@ -232,8 +265,7 @@ def _hessian_vecprod(prob: BAProblem, lin, xp, xl):
 def _start(prob, solve_fn, linearize_fn, delta):
     """Default engines, the first linearization and the vanishing damping
     floor (1e-12 x max diagonal) of the undamped algorithms."""
-    solve_fn = _schur_solve if solve_fn is None else solve_fn
-    linearize_fn = _linearize_graph if linearize_fn is None else linearize_fn
+    solve_fn, linearize_fn = _engines(solve_fn, linearize_fn)
     lin = linearize_fn(prob, prob.poses, prob.points, delta)
     diag0 = torch.cat([torch.diagonal(lin["Hpp"], dim1=-2, dim2=-1).reshape(-1),
                        torch.diagonal(lin["Hll"], dim1=-2, dim2=-1).reshape(-1)])

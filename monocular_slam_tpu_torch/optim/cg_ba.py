@@ -136,6 +136,17 @@ def make_cg_solve_fn(max_cg_iters: int = 100, rtol: float = 1e-8, reduce=no_redu
     return solve
 
 
+def bundle_adjust_cg_step(prob: ba_mod.BAProblem, carry: ba_mod.BACarry,
+                          delta: float = ba_mod.THRESH_HUBER_FULL_BA, max_cg_iters: int = 100,
+                          rtol: float = 1e-8) -> ba_mod.BACarry:
+    """One LM iteration of `bundle_adjust_cg` (`ba.bundle_adjust_step` with
+    the PCG solve), from the carry of `ba.bundle_adjust_start`: the body
+    that the loop closer's captured CG global BA replays once per
+    iteration."""
+    return ba_mod.bundle_adjust_step(prob, carry, delta,
+                                     solve_fn=make_cg_solve_fn(max_cg_iters, rtol))[0]
+
+
 def bundle_adjust_cg(prob: ba_mod.BAProblem, n_iters: int = ba_mod.FULL_BA_ITER,
                      delta: float = ba_mod.THRESH_HUBER_FULL_BA, tau: float = 1e-5,
                      max_cg_iters: int = 100, rtol: float = 1e-8) -> ba_mod.BAResult:

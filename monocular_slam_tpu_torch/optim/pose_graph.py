@@ -11,7 +11,9 @@ LM step; a failed factorization yields NaN, which the step rejects, as the
 reference's `cho_factor` does. `optimize_cg` keeps the same LM schedule on
 per-edge blocks and solves each step with block-Jacobi PCG
 (`optim/cg_ba.pcg`), never forming the Hessian: the loop closer's route
-for keyframe graphs past 512 vertices. Every sum over edges is a
+for keyframe graphs past 512 vertices. Its LM iteration is a function of
+its own (`optimize_cg_step`), which the loop closer's captured program
+replays once per iteration. Every sum over edges is a
 deterministic segment sum (`utils/scatter.py`), so a solve repeats bit for
 bit on the card; the matrix-free path plans its sums once per
 linearization.
@@ -119,11 +121,11 @@ def optimize(g: PoseGraph, n_iters: int = 20, tau: float = 1e-5,
 
     H0, _, chi2_0 = _linearize(g, g.vertices, huber_delta)
     st = lm.LMState(lm.init_lambda(torch.diagonal(H0.reshape(F * 7, F * 7)), tau),
-                    torch.tensor(2.0, dtype=dt, device=dev), chi2_0,
-                    torch.tensor(0, dtype=torch.int32, device=dev),
-                    torch.tensor(False, device=dev))
+                    torch.full((), 2.0, dtype=dt, device=dev), chi2_0,
+                    torch.zeros((), dtype=torch.int32, device=dev),
+                    torch.zeros((), dtype=torch.bool, device=dev))
     verts = g.vertices
-    n_run = torch.tensor(0, dtype=torch.int32, device=dev)
+    n_run = torch.zeros((), dtype=torch.int32, device=dev)
     chi2_h = []
     for _ in range(n_iters):
         n_run = n_run + (~st.done).to(torch.int32)
@@ -183,56 +185,82 @@ def _hessian_matvec(g: PoseGraph, lin, lam, free, x, reduce=lm.no_reduce):
     return y + torch.where(free[:, None], 0.0, x)
 
 
+class CGCarry(NamedTuple):
+    """What one LM iteration of `optimize_cg` hands the next."""
+
+    verts: torch.Tensor
+    st: lm.LMState
+    n_run: torch.Tensor
+
+
+def _linearize_reduced(g: PoseGraph, verts, huber_delta, reduce):
+    lin = _linearize_blocks(g, verts, huber_delta)
+    lin["chi2"], lin["b"], lin["D"] = reduce(lin["chi2"], lin["b"], lin["D"])
+    return lin
+
+
+def optimize_cg_start(g: PoseGraph, tau: float = 1e-5, huber_delta=None,
+                      reduce=lm.no_reduce) -> tuple[CGCarry, torch.Tensor]:
+    """`optimize_cg`'s first linearization: the carry before its first LM
+    iteration, and the initial chi2."""
+    dt, dev = g.vertices.dtype, g.vertices.device
+    lin0 = _linearize_reduced(g, g.vertices, huber_delta, reduce)
+    st = lm.LMState(lm.init_lambda(torch.diagonal(lin0["D"], dim1=-2, dim2=-1).reshape(-1), tau),
+                    torch.full((), 2.0, dtype=dt, device=dev), lin0["chi2"],
+                    torch.zeros((), dtype=torch.int32, device=dev),
+                    torch.zeros((), dtype=torch.bool, device=dev))
+    return CGCarry(g.vertices, st, torch.zeros((), dtype=torch.int32, device=dev)), lin0["chi2"]
+
+
+def optimize_cg_step(g: PoseGraph, carry: CGCarry, max_cg_iters: int = 100, rtol: float = 1e-8,
+                     huber_delta=None, reduce=lm.no_reduce) -> CGCarry:
+    """One LM iteration of `optimize_cg`: the loop's body, which the loop
+    closer's captured program replays `n_iters` times with the carry in
+    static buffers. Once the stall rule has fired it keeps nothing."""
+    dt, dev = g.vertices.dtype, g.vertices.device
+    free = ~g.fixed
+    eye7 = torch.eye(7, dtype=dt, device=dev)
+    verts, st = carry.verts, carry.st
+    n_run = carry.n_run + (~st.done).to(torch.int32)
+    lin = _linearize_reduced(g, verts, huber_delta, reduce)
+    lam = st.lam
+    D_inv, info = torch.linalg.inv_ex(torch.where(free[:, None, None], lin["D"] + lam * eye7, eye7))
+    D_inv = torch.where((info == 0)[:, None, None], D_inv, float("nan"))
+    b = torch.where(free[:, None], lin["b"], 0.0)
+    dx, _ = cg_ba.pcg(
+        lambda x: _hessian_matvec(g, lin, lam, free, x, reduce),
+        lambda r: torch.where(free[:, None], (D_inv * r[:, None, :]).sum(-1), 0.0),
+        b, max_cg_iters, rtol)
+    verts_new = sim3.compose(sim3.exp(dx), verts)
+    chi2_cur, chi2_new = lin["chi2"], reduce(_chi2(g, verts_new, huber_delta))
+    rho = lm.gain_ratio(chi2_cur, chi2_new, dx.reshape(-1), b.reshape(-1), lam)
+    step_ok = (chi2_new < chi2_cur) & torch.isfinite(chi2_new)
+    lam_n, nu_n = lm.lm_step_accept(lam, st.nu, rho, step_ok)
+    verts = torch.where(step_ok & ~st.done, verts_new, verts)
+    stall = step_ok & (chi2_cur - chi2_new < 1e-9 * (chi2_cur + 1e-30))
+    st = lm.LMState(
+        torch.where(st.done, lam, lam_n), torch.where(st.done, st.nu, nu_n),
+        torch.where(st.done, st.chi2, torch.where(step_ok, chi2_new, chi2_cur)),
+        st.it + 1, st.done | stall,
+    )
+    return CGCarry(verts, st, n_run)
+
+
 def optimize_cg(g: PoseGraph, n_iters: int = 20, tau: float = 1e-5, max_cg_iters: int = 100,
                 rtol: float = 1e-8, huber_delta=None, reduce=lm.no_reduce) -> PoseGraphResult:
     """`optimize`'s LM schedule with each damped step (H + lam I) dx = b
-    solved by block-Jacobi PCG, matrix-free. `n_iters_run` counts the LM
+    solved by block-Jacobi PCG, matrix-free: `optimize_cg_start`, then
+    `optimize_cg_step` n_iters times. `n_iters_run` counts the LM
     iterations that ran before the stall rule froze the loop. With `reduce`,
     `g` holds one rank's edges (all vertices) and every sum over edges is
     summed over the ranks: the gradient, the diagonal blocks and chi2 once
     per linearization, one (F, 7) vector per PCG step."""
-    dt, dev = g.vertices.dtype, g.vertices.device
-    free = ~g.fixed
-    eye7 = torch.eye(7, dtype=dt, device=dev)
-
-    def linearize(verts):
-        lin = _linearize_blocks(g, verts, huber_delta)
-        lin["chi2"], lin["b"], lin["D"] = reduce(lin["chi2"], lin["b"], lin["D"])
-        return lin
-
-    lin0 = linearize(g.vertices)
-    st = lm.LMState(lm.init_lambda(torch.diagonal(lin0["D"], dim1=-2, dim2=-1).reshape(-1), tau),
-                    torch.tensor(2.0, dtype=dt, device=dev), lin0["chi2"],
-                    torch.tensor(0, dtype=torch.int32, device=dev),
-                    torch.tensor(False, device=dev))
-    verts = g.vertices
-    n_run = torch.tensor(0, dtype=torch.int32, device=dev)
+    carry, chi2_0 = optimize_cg_start(g, tau, huber_delta, reduce)
     chi2_h = []
     for _ in range(n_iters):
-        n_run = n_run + (~st.done).to(torch.int32)
-        lin = linearize(verts)
-        lam = st.lam
-        D_inv, info = torch.linalg.inv_ex(torch.where(free[:, None, None], lin["D"] + lam * eye7, eye7))
-        D_inv = torch.where((info == 0)[:, None, None], D_inv, float("nan"))
-        b = torch.where(free[:, None], lin["b"], 0.0)
-        dx, _ = cg_ba.pcg(
-            lambda x: _hessian_matvec(g, lin, lam, free, x, reduce),
-            lambda r: torch.where(free[:, None], (D_inv * r[:, None, :]).sum(-1), 0.0),
-            b, max_cg_iters, rtol)
-        verts_new = sim3.compose(sim3.exp(dx), verts)
-        chi2_cur, chi2_new = lin["chi2"], reduce(_chi2(g, verts_new, huber_delta))
-        rho = lm.gain_ratio(chi2_cur, chi2_new, dx.reshape(-1), b.reshape(-1), lam)
-        step_ok = (chi2_new < chi2_cur) & torch.isfinite(chi2_new)
-        lam_n, nu_n = lm.lm_step_accept(lam, st.nu, rho, step_ok)
-        verts = torch.where(step_ok & ~st.done, verts_new, verts)
-        stall = step_ok & (chi2_cur - chi2_new < 1e-9 * (chi2_cur + 1e-30))
-        st = lm.LMState(
-            torch.where(st.done, lam, lam_n), torch.where(st.done, st.nu, nu_n),
-            torch.where(st.done, st.chi2, torch.where(step_ok, chi2_new, chi2_cur)),
-            st.it + 1, st.done | stall,
-        )
-        chi2_h.append(st.chi2)
-    return PoseGraphResult(verts, lin0["chi2"], torch.stack(chi2_h), n_run)
+        carry = optimize_cg_step(g, carry, max_cg_iters, rtol, huber_delta, reduce)
+        chi2_h.append(carry.st.chi2)
+    return PoseGraphResult(carry.verts, chi2_0, torch.stack(chi2_h), carry.n_run)
 
 
 def sequential_graph(poses_sim3, valid, extra_i=None, extra_j=None, extra_meas=None,
@@ -261,6 +289,5 @@ def sequential_graph(poses_sim3, valid, extra_i=None, extra_j=None, extra_meas=N
               else torch.ones(n, dtype=torch.bool, device=dev))
         v = torch.cat([v, ev])
         rob = torch.cat([rob, torch.zeros(n, dtype=torch.bool, device=dev)])
-    fixed = torch.zeros(F, dtype=torch.bool, device=dev)
-    fixed[0] = True
+    fixed = torch.arange(F, device=dev) == 0
     return PoseGraph(poses_sim3, i_idx, j_idx, meas, w, v, fixed, rob)

@@ -33,12 +33,21 @@ and issues one D2H copy of the packed vector into the ring with an event.
 `FrameStats` reads that row once the event is done; the session acts on
 outcomes `stat_lag` frames late, as the reference does (keyframe folding,
 steering health, closures, relocalization after `reloc_after` failures,
-FrameCulling every `kf_cull_every` keyframes). Those eager paths, and the
-bootstrap, copy the state they produce back into the static buffers. A
-capture, build or launch failure raises: no tracked frame on a card runs
-eagerly unless the private `_use_graphs` switch is cleared before the
-first frame (the A/B of `chip_smoke.py`). On the CPU the same functions
-run eagerly, and `graph.cond` reads each predicate.
+FrameCulling every `kf_cull_every` keyframes).
+
+Every other device stage is a program too (`_run`), each the counterpart
+of one of the reference's compiled programs, reading its inputs from
+static control words (`graph.Words`, one host-to-device copy) and writing
+the state in place: an untracked frame's ingest and the bootstrap
+(captured in `prewarm`, as the reference compiles `_bootstrap` there),
+relocalization and its BoW scores, FrameCulling and its database clear,
+and the loop closer's Sim3, correction and global BA (captured at first
+use). Between programs the host reads only what the reference reads, each
+with one copy behind an event (`graph.Readback`). A capture, build or
+launch failure raises: nothing on a card runs op by op unless the private
+`_use_graphs` switch is cleared before the first frame (the A/B of
+`chip_smoke.py`). On the CPU the same functions run op by op, and
+`graph.cond` reads each predicate.
 
 The session is keyed like the reference: `PRNGKey(seed)`, split once per
 bootstrap attempt, tracked frame, closure and relocalization candidate, at
@@ -75,7 +84,7 @@ from monocular_slam_tpu_torch.slam.config import SlamConfig
 from monocular_slam_tpu_torch.slam.state import SlamState
 from monocular_slam_tpu_torch.utils import graph, prng
 from monocular_slam_tpu_torch.utils.device import resolve_device
-from monocular_slam_tpu_torch.utils.scatter import take
+from monocular_slam_tpu_torch.utils.scatter import mark, take
 
 # the packed per-frame vector: the int32 fields, then the float32 fields
 # bitcast into int32 lanes (the reference's layout, session.py:38-44)
@@ -383,8 +392,6 @@ class SlamSession:
         self.cfg = cfg
         self.run_ba = run_ba
         self.device = resolve_device(device)
-        if loop_closer is not None and loop_closer.device != self.device:
-            raise ValueError(f"loop closer on {loop_closer.device}, session on {self.device}")
         self.loop_closer = loop_closer
         self._state: SlamState = state_mod.empty_state(cfg, self.device)
         self.key = prng.PRNGKey(seed)
@@ -415,15 +422,74 @@ class SlamSession:
         self._protect_window = cfg.track.back_traverse + 2
 
         cuda = self.device.type == "cuda"
-        self._use_graphs = cuda  # the captured step; cleared only by chip_smoke's A/B
+        self._use_graphs = cuda  # the captured programs; cleared only by chip_smoke's A/B
         self._ring = [_Row(pin=cuda) for _ in range(cfg.stat_lag + 1)]
         self._ring_next = 0
-        self._programs: dict = {}  # ("track" | "map", ...) -> graph.Program
-        self._pool = None  # the programs' shared graph memory pool
-        self._capture_stream = None
-        self._io: dict = {}  # static device inputs of the programs
-        self.capture_s: dict = {}  # program key -> seconds its capture took
+        # the session's programs (and its loop closer's): one stream, one pool
+        self._graphs = graph.Programs(self.device) if cuda else None
+        self._io = graph.Statics(self.device)  # static inputs and outputs of the programs
         self.flag_reads = 0  # host reads of the mapping block's predicates (one a frame)
+        self._calls: list = []  # (program kind, launch counters and events before, after)
+
+    # --- the loop closer: attached, it runs its programs through the session ------
+    @property
+    def loop_closer(self) -> lc_mod.LoopCloser | None:
+        return self._loop_closer
+
+    @loop_closer.setter
+    def loop_closer(self, lc: lc_mod.LoopCloser | None) -> None:
+        if lc is not None:
+            if lc.device != self.device:
+                raise ValueError(f"loop closer on {lc.device}, session on {self.device}")
+            lc.attach(self)
+        self._loop_closer = lc
+
+    # --- the programs ------------------------------------------------------------
+    @property
+    def capture_s(self) -> dict:
+        """Program key -> seconds its capture took."""
+        return {} if self._graphs is None else self._graphs.capture_s
+
+    @property
+    def _pool(self):
+        return None if self._graphs is None else self._graphs.pool
+
+    def _run(self, key, fn):
+        """Program `key`. `fn(commit)` reads the programs' static inputs and
+        the state and, when `commit`, writes its results to the state and to
+        static outputs; it returns the tensors a later program of the same
+        sequence reads. On the card's graph route `fn` is captured at the
+        program's first use (its warm-up run commits nothing) and replayed;
+        otherwise (the CPU, the card's op-by-op A/B) it runs once with
+        `commit`. On the card the kernels' counters are copied on the
+        device, and an event recorded, around the call (`program_calls`)."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            graph_ready = not self._use_graphs or key in self._graphs.programs
+            if not graph_ready:  # its capture, before the call's counters
+                self._graphs.get(key, lambda: fn(graph.capturing()))
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            before = launches.counters(self.device).clone()
+            ev0.record()
+        with torch.inference_mode():
+            if self._use_graphs:
+                out = self._graphs.get(key, lambda: fn(graph.capturing())).replay()
+            else:
+                out = fn(True)
+        if cuda:
+            ev1.record()
+            self._calls.append((key, before, launches.counters(self.device).clone(), ev0, ev1))
+        return out
+
+    @property
+    def program_calls(self) -> list[dict]:
+        """Every program call of the session outside the tracked step, in
+        order: its key and kind (the key's first part), the kernels'
+        launches the card counted in it and its device milliseconds between
+        two events (waits for the card: call it after the run)."""
+        return [{"kind": key[0], "key": key, "launches": dict(zip(launches.KERNELS,
+                                                                  (b - a).tolist())),
+                 "ms": e0.elapsed_time(e1)} for key, a, b, e0, e1 in self._calls]
 
     # --- the state: static device buffers on the graph route ------------------
     @property
@@ -515,22 +581,13 @@ class SlamSession:
         return torch.as_tensor(np.asarray(k, np.float32) if not torch.is_tensor(k) else k,
                                dtype=torch.float32, device=self.device)
 
-    def _extract(self, img: torch.Tensor) -> orb.Features:
-        fe = self.cfg.frontend
-        return features_mod.extract(
-            img, n_features=fe.n_features, n_levels=fe.n_levels,
-            fast_threshold=fe.fast_threshold, steer_mode=self._steer,
-        )
-
     def add_frame(self, img, k, timestamp: float = 0.0, dist=None) -> FrameStats:
         """Ingest a grayscale (H, W) image in [0, 255] (numpy or tensor).
         Once initialized, a frame is one step (on a card, one replay); a
         host array reaches the card through the pinned ring."""
         if self._initialized and self._next >= 2:
             return self._tracked("image", img, k, timestamp, dist)
-        img = torch.as_tensor(img, device=self.device).to(torch.float32)
-        with torch.inference_mode():
-            return self._ingest(self._extract(img), k, timestamp, dist)
+        return self._untracked("image", img, k, timestamp, dist)
 
     def add_frame_from_buffer(self, buffer: torch.Tensor, idx: int, k, timestamp: float = 0.0,
                               dist=None) -> FrameStats:
@@ -543,8 +600,7 @@ class SlamSession:
                              f"got {tuple(buffer.shape)} on {buffer.device}")
         if self._initialized and self._next >= 2:
             return self._tracked("buffer", buffer, k, timestamp, dist, j=idx)
-        with torch.inference_mode():
-            return self._ingest(self._extract(buffer[idx].to(torch.float32)), k, timestamp, dist)
+        return self._untracked("buffer", buffer, k, timestamp, dist, j=idx)
 
     def add_frame_features(self, feats: orb.Features, k, timestamp: float,
                            dist=None) -> FrameStats:
@@ -552,22 +608,35 @@ class SlamSession:
         the keypoints first when nonzero."""
         if self._initialized and self._next >= 2:
             return self._tracked("features", feats, k, timestamp, dist)
-        with torch.inference_mode():
-            return self._ingest(feats, k, timestamp, dist)
+        return self._untracked("features", feats, k, timestamp, dist)
 
-    def _ingest(self, feats: orb.Features, k, timestamp: float, dist) -> FrameStats:
-        """Frame 0 and the bootstrap attempts, eagerly."""
+    def _host_undistort(self, path: str, frame, k, dist):
+        """Precomputed features with a nonzero `dist` are undistorted before
+        they reach a program (an image's keypoints are, inside it)."""
+        if path == "features" and dist is not None and np.any(np.asarray(dist) != 0):
+            with torch.inference_mode():
+                frame = frame._replace(uv=cam.undistort_pixels(self._k(k), self._k(dist), frame.uv))
+            dist = None
+        return frame, dist
+
+    def _untracked(self, path: str, frame, k, timestamp: float, dist, j: int = 0) -> FrameStats:
+        """Frame 0 and the bootstrap attempts: the frame's ingest program
+        (the reference's extraction and `_add_feats`), then after frame 0
+        the bootstrap program against the reference frame and ONE host read
+        of its (ok, n_inliers, n_points). A success also inserts the frame's
+        BoW row, the map's first anchor for closure, inside the program."""
         i = self._next
         if i >= self.cfg.max_frames:
             raise ValueError(f"frame capacity {self.cfg.max_frames} exhausted")
-        if dist is not None and np.any(np.asarray(dist) != 0):
-            feats = feats._replace(uv=cam.undistort_pixels(self._k(k), self._k(dist), feats.uv))
+        frame, dist = self._host_undistort(path, frame, k, dist)
+        steer = None if path == "features" else self._steer
         slot, prev = self._acquire_slot(i)
+        row = self._acquire_row()
         try:
-            self.state = state_mod.add_frame_features(
-                self.state, i, slot, feats.uv, feats.scale, feats.valid,
-                feats.desc, feats.desc_pm1, self._k(k),
-            )
+            self._ctrl_words(row, i, slot, j, k, dist, np.zeros(2, np.uint32))
+            if path == "image" and not torch.is_tensor(frame):
+                frame = row.image(np.asarray(frame))
+            self._ingest_frame(path, steer, frame, row)
         except Exception:
             self._release_slot(slot, prev)
             raise
@@ -577,10 +646,10 @@ class SlamSession:
         if i == 0:
             st.tracked = True
         else:
-            res = tracker.bootstrap(self.state, self._split(), self.cfg, self._init_ref, i)
-            self.state = res.state
-            ok, n_inl, n_pts = torch.stack([res.ok.long(), res.n_inliers.long(),
-                                            res.n_points.long()]).tolist()
+            words = self._io.words("boot_in", 4).fill([self._init_ref, i], self._split())
+            out = self._io.readback("boot_out", 3)
+            self._run(("bootstrap", id(self.loop_closer)), self._bootstrap_fn(words, out))
+            ok, n_inl, n_pts = (int(x) for x in out.start().get())
             st.tracked = bool(ok)
             st.n_inliers = n_inl
             st.n_new_points = n_pts
@@ -588,14 +657,68 @@ class SlamSession:
                 self._initialized = True
                 st.is_keyframe = True
                 self._last_kf.fill_(i)
-                if self.loop_closer is not None:
-                    # the map's first anchor must be queryable for closure
-                    self.loop_closer.insert_from_state(self.state, i)
             elif i - self._init_ref >= self.cfg.init.max_defer:
                 self._init_ref = i - 1
         st.last_kf = i if st.is_keyframe else -1
         self._enqueue(st)
         return st
+
+    def _bootstrap_fn(self, words: torch.Tensor, out: graph.Readback):
+        """The bootstrap program (the reference's `_bootstrap`): the two-view
+        map between frames f0 and f1 (control words f0, f1, the key's two
+        words), and with a loop closer frame f1's BoW row where it
+        succeeds."""
+        cfg, lc = self.cfg, self.loop_closer
+
+        def fn(commit: bool):
+            f0, f1, key = words[0], words[1], words[2:4]
+            res = tracker.bootstrap(self.state, key, cfg, f0, f1)
+            if lc is not None:
+                db = lc._db
+                row = torch.where(res.ok, lc._bow_of(res.state, f1), take(db, f1))
+            if commit:
+                self.state = res.state
+                out.dev.copy_(graph.pack([res.ok, res.n_inliers, res.n_points]))
+                if lc is not None:
+                    db.index_copy_(0, f1.reshape(1), row[None])
+
+        return fn
+
+    def _layout(self, path: str, frame):
+        """What a frame program's capture depends on besides its path."""
+        return ((frame.data_ptr(), tuple(frame.shape), frame.dtype) if path == "buffer"
+                else tuple(frame.shape) if path == "image" else None)
+
+    def _ingest_fn(self, path: str, steer, ctrl: torch.Tensor, src):
+        def fn(commit: bool):
+            state = self._ingest_step(path, steer, self.state, ctrl, src)
+            if commit:
+                self.state = state
+
+        return fn
+
+    def _stage(self, path: str, frame) -> None:
+        """A frame's image or features into the programs' static inputs."""
+        if path == "image":
+            self._static_input(path, frame).copy_(frame, non_blocking=True)
+        elif path == "features":
+            for buf, x in zip(self._static_input(path, frame), frame):
+                buf.copy_(x, non_blocking=True)
+
+    def _ingest_frame(self, path: str, steer, frame, row: _Row) -> None:
+        """An untracked frame's ingest program: the control words of `row`
+        and the frame staged into the static inputs on the graph route, as
+        the tracked part of the step takes them."""
+        if self._use_graphs:
+            ctrl, _ = self._io_buffers()
+            ctrl.copy_(row.ctrl, non_blocking=True)
+            self._stage(path, frame)
+            src = self._static_input(path, frame)
+        else:
+            ctrl = row.ctrl.to(self.device, copy=True)  # the row is reused
+            src = frame.to(self.device) if path == "image" else frame
+        self._run(("ingest", path, steer, self._layout(path, frame)),
+                  self._ingest_fn(path, steer, ctrl, src))
 
     # --- the tracked step ---------------------------------------------------------
     def _acquire_row(self) -> _Row:
@@ -608,8 +731,7 @@ class SlamSession:
             row.owner = None
         return row
 
-    def _ctrl_words(self, row: _Row, i: int, slot: int, j: int, k, dist) -> None:
-        pnp = prng.split(self._split())[0]
+    def _ctrl_words(self, row: _Row, i: int, slot: int, j: int, k, dist, pnp) -> None:
         kd = np.zeros(9, np.float32)
         kd[:4] = np.asarray(k.cpu() if torch.is_tensor(k) else k, np.float32).reshape(4)
         if dist is not None:
@@ -674,7 +796,6 @@ class SlamSession:
             self._io["front"] = torch.zeros(6, dtype=torch.int32, device=d)
             self._io["front_host"] = torch.zeros(6, dtype=torch.int32, pin_memory=True)
             self._io["front_event"] = torch.cuda.Event()
-            self._capture_stream = torch.cuda.Stream(d)
         return self._io["ctrl"], self._io["front"]
 
     def _store(self, state: SlamState) -> None:
@@ -683,24 +804,13 @@ class SlamSession:
             if x is not buf:
                 buf.copy_(x)
 
-    def _capture(self, key, run) -> graph.Program:
-        with torch.inference_mode():
-            prog = graph.Program(run, stream=self._capture_stream, pool=self._pool)
-        if self._pool is None:
-            self._pool = prog.graph.pool()
-        self._programs[key] = prog
-        self.capture_s[key] = prog.capture_s
-        return prog
-
     def _track_program(self, path: str, steer: str | None, frame) -> graph.Program:
         """The tracked part of the step for (path, steering, frame layout):
         ingest, `track_step`; the state and last keyframe go to the static
         buffers, the flags and counts to the static `front` vector."""
-        layout = ((frame.data_ptr(), tuple(frame.shape), frame.dtype) if path == "buffer"
-                  else tuple(frame.shape) if path == "image" else None)
-        key = ("track", path, steer, layout)
-        if key in self._programs:
-            return self._programs[key]
+        key = ("track", path, steer, self._layout(path, frame))
+        if key in self._graphs.programs:
+            return self._graphs.programs[key]
         ctrl, front = self._io_buffers()
         src, static, last_kf, cfg = self._static_input(path, frame), self._state, \
             self._last_kf, self._cfg_for(steer)
@@ -717,15 +827,15 @@ class SlamSession:
                 front.copy_(out)
             return front
 
-        return self._capture(key, run)
+        return self._graphs.get(key, run)
 
     def _map_program(self, preds: tuple) -> graph.Program:
         """The mapping block with its parts decided on the host (`preds`, as
         `mapping_predicates` gives them), then detection and the packed
         vector."""
         key = ("map", preds, id(self.loop_closer))
-        if key in self._programs:
-            return self._programs[key]
+        if key in self._graphs.programs:
+            return self._graphs.programs[key]
         ctrl, front = self._io_buffers()
         static, cfg = self._state, self.cfg
         db, voc, lcfg = self._closer_args()
@@ -742,21 +852,18 @@ class SlamSession:
                 self._store(state)
             return packed
 
-        return self._capture(key, run)
+        return self._graphs.get(key, run)
 
     def _tracked(self, path: str, frame, k, timestamp: float, dist, j: int = 0) -> FrameStats:
         i = self._next
         if i >= self.cfg.max_frames:
             raise ValueError(f"frame capacity {self.cfg.max_frames} exhausted")
-        if path == "features" and dist is not None and np.any(np.asarray(dist) != 0):
-            with torch.inference_mode():
-                frame = frame._replace(uv=cam.undistort_pixels(self._k(k), self._k(dist), frame.uv))
-            dist = None
+        frame, dist = self._host_undistort(path, frame, k, dist)
         steer = None if path == "features" else self._steer
         slot, prev = self._acquire_slot(i)
         row = self._acquire_row()
         try:
-            self._ctrl_words(row, i, slot, j, k, dist)
+            self._ctrl_words(row, i, slot, j, k, dist, prng.split(self._split())[0])
             if path == "image" and not torch.is_tensor(frame):
                 frame = row.image(np.asarray(frame))  # staged in the row's pinned buffer
             if self.device.type == "cuda":
@@ -789,11 +896,7 @@ class SlamSession:
         ctrl, _ = self._io_buffers()
         prog = self._track_program(path, steer, frame)
         ctrl.copy_(row.ctrl, non_blocking=True)
-        if path == "image":
-            self._static_input(path, frame).copy_(frame, non_blocking=True)
-        elif path == "features":
-            for buf, x in zip(self._static_input(path, frame), frame):
-                buf.copy_(x, non_blocking=True)
+        self._stage(path, frame)
         front = prog.replay()
         host, ev = self._io["front_host"], self._io["front_event"]
         host.copy_(front, non_blocking=True)
@@ -827,9 +930,11 @@ class SlamSession:
         frame are captured: the tracked part for features, or with `image`
         for an `image_hw` (default: `cfg.image_wh`) image in each steering
         mode the session can use, or with `buffer` for frames of that device buffer
-        (`add_frame_from_buffer`), and the mapping programs a keyframe-rate
-        session replays (the reference compiles its step programs in its
-        prewarm); on the CPU,
+        (`add_frame_from_buffer`), the mapping programs a keyframe-rate
+        session replays, and the untracked frames' ingest and bootstrap
+        programs (the reference compiles its step programs and `_bootstrap`
+        in its prewarm; the loop closer's programs, relocalization and
+        FrameCulling are captured at their first use); on the CPU,
         with `image`, one extraction of a zero image in each mode. With a
         loop closer, the pose graph's edge Jacobians and the Sim3 RANSAC
         polish run on tiny inputs, whose first `torch.func` transforms
@@ -847,15 +952,23 @@ class SlamSession:
                 for f in [ex.submit(m.load) for m in (fast_score, hamming, small_eigh)]:
                     f.result()
         if self._use_graphs:
+            frames = []
             if image:
                 zero = torch.zeros((H, W), dtype=torch.float32, device=dev)
-                for mode in modes:
-                    self._track_program("image", mode, zero)
+                frames += [("image", mode, zero) for mode in modes]
             if buffer is not None:
-                for mode in modes:
-                    self._track_program("buffer", mode, buffer)
+                frames += [("buffer", mode, buffer) for mode in modes]
             if not image and buffer is None:
-                self._track_program("features", None, self._static_input("features", None))
+                frames.append(("features", None, self._static_input("features", None)))
+            ctrl, _ = self._io_buffers()
+            for path, mode, frame in frames:
+                self._track_program(path, mode, frame)
+                fn = self._ingest_fn(path, mode, ctrl, self._static_input(path, frame))
+                self._graphs.get(("ingest", path, mode, self._layout(path, frame)),
+                                 lambda fn=fn: fn(graph.capturing()))
+            boot = self._bootstrap_fn(self._io.words("boot_in", 4).dev,
+                                      self._io.readback("boot_out", 3))
+            self._graphs.get(("bootstrap", id(self.loop_closer)), lambda: boot(graph.capturing()))
             if self.cfg.ba.keyframe_only:
                 for kf, run_map in ((True, True), (False, True), (False, False)):
                     preds = mapping_predicates(0, True, kf, run_map, self.cfg, self.run_ba)
@@ -932,64 +1045,113 @@ class SlamSession:
     def _try_relocalize(self) -> None:
         """Relocalize the newest ingested frame against the BoW-nearest
         resident keyframes (the failure is seen `stat_lag` frames late; the
-        newest frame is the one the next step can chain from)."""
+        newest frame is the one the next step can chain from). The scores
+        program (the reference's `_reloc_scores`) and ONE host read of the
+        scores with `slot_of` and `pose_valid`, whose entry for the newest
+        frame is its tracked flag (a tracked or relocalized frame, and only
+        such a frame, has a valid pose), so its outcome row is not waited
+        for; then per candidate the relocalization program (the reference's
+        `_reloc`) and ONE host read of its (ok, n_inliers)."""
         lc = self.loop_closer
         i = self._next - 1
         newest = self.stats[i]
-        if newest.tracked:
+        F = self.cfg.max_frames
+        words = self._io.words("scores_in", 1).fill([i])
+        out = self._io.readback("scores_out", 3 * F)
+
+        def scores_fn(commit: bool):
+            st = self.state
+            sc = lc.reloc_scores(st, words[0])
+            if commit:
+                out.dev.copy_(graph.pack([st.slot_of, st.pose_valid], [sc]))
+
+        self._run(("reloc_scores", id(lc)), scores_fn)
+        vals = out.start().get()
+        slot_of, pose_valid, scores = vals[:F], vals[F:2 * F] != 0, vals[2 * F:].view(np.float32)
+        if pose_valid[i]:  # the newest frame was tracked
             self._fail_streak = 0
             return
-        if int(self.state.slot_of[i]) < 0:
+        if slot_of[i] < 0:
             return
-        with torch.inference_mode():
-            scores = lc.reloc_scores(self.state, i).cpu().numpy()
-            slot_of = self.state.slot_of.cpu().numpy()
-            pose_valid = self.state.pose_valid.cpu().numpy()
-            cands = [int(f) for f in np.argsort(-scores)
-                     if np.isfinite(scores[f]) and f < i and slot_of[f] >= 0 and pose_valid[f]]
-            for cand in cands[: self.cfg.track.reloc_candidates]:
-                self.reloc_attempts += 1
-                res = tracker.relocalize(self.state, i, cand, self._split(), self.cfg)
-                ok, n = torch.stack([res.ok.to(torch.int64), res.n_inliers.to(torch.int64)]).tolist()
-                if ok:
-                    self.reloc_successes += 1
-                    self.state = res.state
-                    newest.tracked = True
-                    newest.n_inliers = n
-                    self._fail_streak = 0
-                    return
+        cands = [int(f) for f in np.argsort(-scores)
+                 if np.isfinite(scores[f]) and f < i and slot_of[f] >= 0 and pose_valid[f]]
+        rwords, rout = self._io.words("reloc_in", 4), self._io.readback("reloc_out", 2)
+        for cand in cands[: self.cfg.track.reloc_candidates]:
+            self.reloc_attempts += 1
+            rwords.fill([i, cand], self._split())
+            self._run(("relocalize",), self._reloc_fn(rwords.dev, rout))
+            ok, n = (int(x) for x in rout.start().get())
+            if ok:
+                self.reloc_successes += 1
+                newest.tracked = True
+                newest.n_inliers = n
+                self._fail_streak = 0
+                return
+
+    def _reloc_fn(self, words: torch.Tensor, out: graph.Readback):
+        """The relocalization program: frame i against keyframe cand
+        (control words i, cand, the key's two words)."""
+        cfg = self.cfg
+
+        def fn(commit: bool):
+            res = tracker.relocalize(self.state, words[0], words[1], words[2:4], cfg)
+            if commit:
+                self.state = res.state
+                out.dev.copy_(graph.pack([res.ok, res.n_inliers]))
+
+        return fn
 
     def _cull_dispatch(self) -> None:
-        """FrameCulling on the current state; its flags are applied
-        `stat_lag` frames later, as in the reference."""
+        """The FrameCulling program on the current state (the reference's
+        `_cull_fn`): one fixed trip over the known keyframes, padded to a
+        bucket of the loop closer's `kf_bucket`; its flags come back with ONE
+        host read `stat_lag` frames later, as in the reference."""
         m = self.cfg.mapping
         kfs = self._keyframes_known() if self.loop_closer is not None else self.keyframes
         if len(kfs) <= m.kf_keep_recent + 1:
             return
         F = self.cfg.max_frames
-        flags = np.zeros(F, bool)
-        flags[kfs] = True
-        protect = np.zeros(F, bool)
-        protect[kfs[0]] = True
-        protect[kfs[-m.kf_keep_recent:]] = True
-        with torch.inference_mode():
-            flags_dev = kf_mod.cull_frames_device(
-                self.state, flags, protect, redundancy=m.kf_cull_redundancy,
-                min_other_obs=m.kf_cull_min_other_obs)
-        self._cull_pending = (flags_dev, kfs, self._next)
+        B = self.loop_closer.lc.kf_bucket if self.loop_closer is not None else 128
+        Kb = max(B, -(-len(kfs) // B) * B)
+        pad = np.zeros(Kb, np.int64)
+        pad[: len(kfs)] = kfs
+        words = self._io.words(("cull_in", Kb), 1 + Kb).fill([len(kfs)], pad)
+        out = self._io.readback("cull_out", F)
+        culled = self._io.buffer("culled", self.state.pose_valid)
+
+        def fn(commit: bool):
+            kf_pad, n = words[1:], words[0]
+            flags = kf_mod.cull_keyframes(self.state, kf_pad, n, m.kf_keep_recent,
+                                          redundancy=m.kf_cull_redundancy,
+                                          min_other_obs=m.kf_cull_min_other_obs)
+            if commit:
+                out.dev.copy_(flags.to(torch.int32))
+                pos = torch.arange(Kb, device=kf_pad.device)
+                culled.copy_(mark(F, kf_pad, keep=pos < n) & ~flags)
+
+        self._run(("cull", Kb), fn)
+        self._cull_pending = (out.start(), kfs, self._next)
 
     def _cull_apply(self) -> list[int]:
         if self._cull_pending is None:
             return []
-        flags_dev, kfs, _ = self._cull_pending
+        out, kfs, _ = self._cull_pending
         self._cull_pending = None
-        new_flags = flags_dev.cpu().numpy()
+        new_flags = out.get()
         culled = [f for f in kfs if not new_flags[f]]
         self._kf_culled.update(culled)
         if culled and self.loop_closer is not None:
             # culled keyframes leave the candidate set and the floor; their
-            # remembered loop edges stay (the pose is still a graph vertex)
-            self.loop_closer.clear_rows(culled)
+            # remembered loop edges stay (the pose is still a graph vertex).
+            # The rows go with a program of their own (the reference's
+            # `_clear_rows`), from the culling program's mask.
+            db, mask = self.loop_closer._db, self._io["culled"]
+
+            def clear(commit: bool):
+                if commit:
+                    db.masked_fill_(mask[:, None], 0.0)
+
+            self._run(("clear_rows", id(self.loop_closer)), clear)
         return culled
 
     def cull_redundant_keyframes(self) -> list[int]:

@@ -2,14 +2,16 @@
 and relocalization (counterpart of `bootstrap`, `track`, `relocalize` and
 their helpers in `monocular_slam_tpu/slam/tracker.py`).
 
-Frame ids `f0`, `f1`, `cand` are host ints (the session knows them); the
-tracked frame `i` of `track` is a host int or a 0-d device tensor (the
-captured step reads it from a device buffer). Every quantity derived from
-the state stays on the device, and a failed step returns the input state
-through `state.select`. Each step takes the reference's host key
-(`utils/prng.py`) and draws what the reference draws from it; `track` also
-takes the PnP key it would split off as device words (`pnp_key`), and `u`
-takes the RANSAC uniforms themselves in place of the key.
+Frame ids (`f0`, `f1` of `bootstrap`, `i` and `cand` of `relocalize`, `i`
+of `track`) are host ints or 0-d device tensors: the session's captured
+programs read them from device buffers, as the reference traces them.
+Every quantity derived from the state stays on the device, and a failed
+step returns the input state through `state.select`. Each step takes the
+reference's key, as a host key (`utils/prng.py`) or as its (2,) int64
+device words (`prng.key_on`), and draws what the reference draws from it;
+`track` also takes the PnP key it would split off as device words
+(`pnp_key`), and `u` takes the RANSAC uniforms themselves in place of the
+key.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ def bootstrap(state: SlamState, key, cfg: SlamConfig, f0: int = 0, f1: int = 1,
     uv0 = take(state.kp_uv, s0)
     uv1_all = take(state.kp_uv, s1)
     uv1 = uv1_all[m.idx.long()]
-    k0, k1 = state.k[f0], state.k[f1]
+    k0, k1 = take(state.k, f0), take(state.k, f1)
 
     res = epipolar.ransac_fundamental(
         key, uv0, uv1, m.ok, n_iters=cfg.init.ransac_iters,
@@ -62,7 +64,7 @@ def bootstrap(state: SlamState, key, cfg: SlamConfig, f0: int = 0, f1: int = 1,
     )
     E = epipolar.essential_from_fundamental(res.F, k0, k1)
     tv = epipolar.pose_from_essential(E, k0, k1, uv0, uv1, res.inliers)
-    T0 = state.poses[f0]
+    T0 = take(state.poses, f0)
     T1 = se3.compose(tv.T_21, T0)
     X_world = se3.apply(se3.inverse(T0), tv.points)
     want = tv.good
@@ -81,7 +83,7 @@ def bootstrap(state: SlamState, key, cfg: SlamConfig, f0: int = 0, f1: int = 1,
         uv=torch.stack([uv0, uv1_all]),
         info=torch.stack([1.0 / take(state.kp_scale, s0), 1.0 / take(state.kp_scale, s1)]),
         valid=torch.stack([want & kv0, (f1_slot < N) & kv1]),
-        fixed=torch.tensor([True, False], device=dev),
+        fixed=torch.arange(2, device=dev) == 0,
     )
     bres = window_ba.bundle_adjust(prob, n_iters=cfg.init.refine_iters, delta=cfg.ba.huber_full)
     T1 = bres.poses[1]
@@ -115,12 +117,9 @@ def bootstrap(state: SlamState, key, cfg: SlamConfig, f0: int = 0, f1: int = 1,
         & (tv.n_good >= cfg.init.min_inliers)
         & (n_strong >= cfg.init.min_strong_parallax)
     )
-    poses = new_state.poses.clone()
-    poses[f1] = T1
-    pose_valid = new_state.pose_valid.clone()
-    pose_valid[f0] = ok
-    pose_valid[f1] = ok
-    new_state = new_state._replace(poses=poses, pose_valid=pose_valid, feat_point=feat_point)
+    pose_valid = put(put(new_state.pose_valid, f0, ok), f1, ok)
+    new_state = new_state._replace(poses=put(new_state.poses, f1, T1), pose_valid=pose_valid,
+                                   feat_point=feat_point)
     final = state_mod.select(ok, new_state, state)
     return BootstrapResult(final, ok, res.num_inliers, (slot_ids >= 0).sum())
 
@@ -139,7 +138,7 @@ def relocalize(state: SlamState, i: int, cand: int, key, cfg: SlamConfig, u=None
     of `key`."""
     si = state_mod.slot_index(state, i)
     sc = state_mod.slot_index(state, cand)
-    cand_ok = (state.slot_of[cand] >= 0) & state.pose_valid[cand]
+    cand_ok = (take(state.slot_of, cand) >= 0) & take(state.pose_valid, cand)
     m = matching.match(
         take(state.desc_pm1, si).contiguous(), take(state.desc_pm1, sc).contiguous(),
         take(state.kp_valid, si), take(state.kp_valid, sc) & cand_ok,
@@ -151,7 +150,7 @@ def relocalize(state: SlamState, i: int, cand: int, key, cfg: SlamConfig, u=None
     has = m.ok & (pid >= 0) & state.point_valid[pids]
     X = state.points[pids]
     uv_i = take(state.kp_uv, si)
-    k_i = state.k[i]
+    k_i = take(state.k, i)
     pres = pnp.solve_pnp_ransac(
         key, X, uv_i, k_i, has & take(state.kp_valid, si), n_iters=cfg.track.pnp_iters,
         px_thresh=cfg.track.pnp_px_thresh, min_inliers=cfg.track.reloc_min_inliers, u=u,
@@ -163,11 +162,8 @@ def relocalize(state: SlamState, i: int, cand: int, key, cfg: SlamConfig, u=None
     use_ref = rres.n_inliers >= pres.n_inliers
     inl = torch.where(use_ref, rres.inliers, pres.inliers) & has
     fp_i = torch.where(inl, pid, take(state.feat_point, si))
-    poses = state.poses.clone()
-    poses[i] = torch.where(use_ref, rres.T, pres.T)
-    pose_valid = state.pose_valid.clone()
-    pose_valid[i] = True
-    new_state = state._replace(poses=poses, pose_valid=pose_valid,
+    new_state = state._replace(poses=put(state.poses, i, torch.where(use_ref, rres.T, pres.T)),
+                               pose_valid=put(state.pose_valid, i, True),
                                feat_point=put(state.feat_point, si, fp_i))
     return RelocResult(state_mod.select(ok, new_state, state), ok, n)
 

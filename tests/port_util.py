@@ -302,8 +302,9 @@ def multihost_rank() -> None:
 # Under `sync_audit()`, every operation that would read a device value on the
 # host, or copy host data to the device, in a CUDA run (`.item()`, `bool()`,
 # `.tolist()`, `torch.tensor`, indexing with a 0-d tensor or a boolean mask,
-# `nonzero`, `torch.linalg.eigh`, ...) raises, so a CPU test can show that a
-# function has no host round trip and can be captured into a CUDA graph.
+# a Python number stored by indexing, `nonzero`, `torch.linalg.eigh`, ...)
+# raises, so a CPU test can show that a function has no host round trip and
+# can be captured into a CUDA graph.
 
 _HOST_READS = {
     torch.Tensor.item, torch.Tensor.tolist, torch.Tensor.numpy, torch.Tensor.cpu,
@@ -357,8 +358,10 @@ class _FnMode(TorchFunctionMode):
         if func in _HOST_READS:
             self.audit.hit(f"Tensor.{func.__name__}")
         if func is torch.Tensor.__setitem__ and not torch.is_tensor(args[2]):
-            # a Python number stored by indexing: on a card it becomes a
-            # device scalar tensor (a fill), not a host-to-device copy
+            # a Python number stored by indexing: on a card torch makes it a
+            # host scalar tensor and copies it to the selected element (a
+            # copy a capture refuses)
+            self.audit.hit("Tensor.__setitem__ of a Python number")
             self.audit.scalar_store += 1
             try:
                 return func(*args, **(kwargs or {}))

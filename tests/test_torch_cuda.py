@@ -93,8 +93,9 @@ def test_session_on_cuda(cuda):
     for i in range(12):
         sess.add_frame(imgs[i], k, i / 30.0)
     # one K1 launch per frame, all levels, plus one per captured image
-    # program's warm-up run
-    warmups = sum(1 for key in sess.capture_s if key[:2] == ("track", "image"))
+    # program's warm-up run (the tracked part's and the untracked frames'
+    # ingest)
+    warmups = sum(1 for key in sess.capture_s if key[:2] in (("track", "image"), ("ingest", "image")))
     assert warmups >= 1
     assert launches.count("corner_maps") - before == 12 + warmups
     poses, valid, _ = sess.trajectory()
@@ -331,7 +332,10 @@ def test_cg_solvers_on_cuda_match_cpu(cuda):
 
 def test_prewarm_and_buffer_on_cuda(cuda):
     """`prewarm` on the card builds K1 and K2 and launches K1 once per
-    steering mode; frames from a uint8 buffer on the card track."""
+    steering mode in each of the two image programs it captures (the
+    tracked part's and the untracked frames' ingest: a capture's warm-up
+    run launches for real); frames from a uint8 buffer on the card
+    track."""
     from monocular_slam_tpu_torch.datasets import render
     from monocular_slam_tpu_torch.retrieval import vocabulary
     from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
@@ -344,7 +348,8 @@ def test_prewarm_and_buffer_on_cuda(cuda):
     sess = SlamSession(cfg, seed=0, loop_closer=LoopCloser(vocabulary.load_default(), cfg))
     before = launches.count("corner_maps")
     assert sess.prewarm(image=True) > 0
-    assert launches.count("corner_maps") == before + 2  # "auto" steering: both modes
+    # "auto" steering: both modes, each in the tracked part and the ingest
+    assert launches.count("corner_maps") == before + 4
     buf = imgs.to(torch.uint8)
     for i in range(8):
         sess.add_frame_from_buffer(buf, i, k, i / 30.0)
@@ -732,3 +737,182 @@ def test_step_program_equals_eager_on_cuda(cuda):
     assert [c["svd3"] for c in g.step_launches[1:]] == [2] * (len(k2g) - 1)
     assert [c["svd3"] for c in e.step_launches] == [2] * len(k2e)
     assert any(key[0] == "map" for key in g.capture_s)
+
+
+# --- the programs outside the tracked step ------------------------------------------
+
+
+def _closer_session(cuda, use_graphs=True):
+    """A session with a loop closer over the threefry revisit course's first
+    14 frames (features), sized so that a keyframe bucket of 8 reaches a
+    second bucket, the pose graph past 8 vertices takes its CG route
+    (`POSE_GRAPH_DENSE_MAX` patched by the caller) and global BA takes its
+    CG route (F * P = 64 * 65536 > 4e6)."""
+    from monocular_slam_tpu_torch.datasets import synthetic
+    from monocular_slam_tpu_torch.retrieval import vocabulary
+    from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
+    from monocular_slam_tpu_torch.slam.loop_closer import LoopCloser, LoopClosureConfig
+    from monocular_slam_tpu_torch.slam.session import SlamSession
+    from monocular_slam_tpu_torch.utils import prng
+
+    seq = synthetic.feature_sequence(prng.PRNGKey(1), n_frames=14, n_features=200,
+                                     n_world_points=900, pix_noise=0.4, drop_prob=0.08,
+                                     ang_step=0.14, device=cuda)
+    desc = torch.cat([f.desc_pm1[f.valid] for f in seq.frames[:6]]).cpu().numpy()
+    voc = vocabulary.train(desc, k=6, L=2, seed=0, device=cuda)
+    cfg = SlamConfig(max_frames=64, max_points=65536, frontend=FrontendConfig(n_features=200))
+    lc = LoopCloser(voc, cfg, LoopClosureConfig(min_gap=3, kf_bucket=8, sim3_iters=64,
+                                                global_ba_iters=3), device=cuda)
+    sess = SlamSession(cfg, seed=0, loop_closer=lc, device=cuda)
+    sess._use_graphs = use_graphs
+    sess.prewarm()
+    return sess, seq
+
+
+def _host_snapshot(sess):
+    import copy
+
+    lc = sess.loop_closer
+    return ([x.clone() for x in sess._state], lc._db.clone(), sess.key.copy(),
+            copy.deepcopy({n: getattr(lc, n) for n in ("loop_edges", "routes", "closures",
+                                                         "corrected", "reverted",
+                                                         "skipped_identity")}),
+            copy.deepcopy({n: getattr(sess, n) for n in ("reloc_attempts", "reloc_successes",
+                                                           "_kf_culled")}))
+
+
+def _restore(sess, static, snap):
+    tensors, db, key, lc_attrs, sess_attrs = snap
+    sess._state = static
+    for b, x in zip(static, tensors):
+        b.copy_(x)
+    sess.loop_closer._db.copy_(db)
+    sess.key = key.copy()
+    for n, v in lc_attrs.items():
+        setattr(sess.loop_closer, n, list(v))
+    for n, v in sess_attrs.items():
+        setattr(sess, n, type(v)(v))
+
+
+def _ab(sess, run):
+    """`run(sess)` through the captured programs and again op by op from the
+    same state: (outputs, state tensors, database) of both, and the program
+    calls of the captured run."""
+    static, snap = sess._state, _host_snapshot(sess)
+    n0 = len(sess._calls)
+    out_g = run(sess)
+    torch.cuda.synchronize()
+    got_g = ([x.clone() for x in sess._state], sess.loop_closer._db.clone())
+    calls = sess.program_calls[n0:]
+    _restore(sess, static, snap)
+    sess._use_graphs = False
+    try:
+        out_e = run(sess)
+        got_e = ([x.clone() for x in sess._state], sess.loop_closer._db.clone())
+    finally:
+        sess._use_graphs = True
+        _restore(sess, static, snap)
+    return out_g, out_e, got_g, got_e, calls
+
+
+def _assert_same(a, b, what):
+    from monocular_slam_tpu_torch.slam.state import SlamState
+
+    (sa, dba), (sb, dbb) = a, b
+    for n, x, y in zip(SlamState._fields, sa, sb):
+        assert torch.equal(x, y), f"{what}: state field {n} differs"
+    assert torch.equal(dba, dbb), f"{what}: database differs"
+
+
+def test_closer_programs_equal_op_by_op_on_cuda(cuda, monkeypatch):
+    """Each program outside the tracked step, replayed, against the same
+    functions run op by op on the card from the same state, bit for bit in
+    state, database and host outputs: the Sim3 (K2 and svd3 inside), the
+    relocalization attempt (its scores program, then K2 and K3's eigh in
+    each candidate's replay), FrameCulling with its row clearing, the loop
+    correction at keyframe buckets 8 (dense pose graph) and 16 (the CG
+    pose graph's captured LM step replayed 20 times), each followed by the
+    CG global BA's LM step replayed; capturing bucket 16 drops bucket 8's
+    correction programs."""
+    from monocular_slam_tpu_torch.slam import loop_closer
+    from monocular_slam_tpu_torch.utils import prng
+
+    monkeypatch.setattr(loop_closer, "POSE_GRAPH_DENSE_MAX", 8)
+    sess, seq = _closer_session(cuda)
+    for i, f in enumerate(seq.frames):
+        sess.add_frame_features(f, seq.k, float(i))
+    sess.flush()
+    lc = sess.loop_closer
+    assert all(s.tracked for s in sess.stats)
+
+    def sim3(s):
+        S, n = s.loop_closer.compute_sim3(s.state, 13, 6, prng.PRNGKey(5))
+        return None if S is None else S.clone(), n
+
+    (Sg, ng), (Se, ne), a, b, calls = _ab(sess, sim3)
+    assert ng == ne >= 15 and torch.equal(Sg, Se)
+    _assert_same(a, b, "sim3")
+    assert [c["kind"] for c in calls] == ["sim3"]
+    assert calls[0]["launches"]["hamming_top2"] >= 1 and calls[0]["launches"]["svd3"] >= 1
+
+    def reloc(s):
+        s.state.pose_valid[13] = False  # the newest frame lost
+        s._try_relocalize()
+        return s.reloc_attempts, s.reloc_successes, bool(s.stats[-1].tracked)
+
+    out_g, out_e, a, b, calls = _ab(sess, reloc)
+    assert out_g == out_e and out_g[0] >= 1
+    _assert_same(a, b, "relocalization")
+    cands = [c for c in calls if c["kind"] == "relocalize"]
+    assert [c["kind"] for c in calls][:1] == ["reloc_scores"] and len(cands) == out_g[0]
+    assert all(c["launches"]["hamming_top2"] >= 1 and c["launches"]["small_eigh"] >= 1
+               for c in cands)
+
+    sess._keyframes = list(range(0, 14, 2))  # enough keyframes for a pass
+    out_g, out_e, a, b, calls = _ab(sess, lambda s: s.cull_redundant_keyframes())
+    assert out_g == out_e
+    _assert_same(a, b, "culling")
+    assert calls[0]["kind"] == "cull"
+
+    S = sim3(sess)[0]
+    for kfs, K_pad in (([0, 2, 4, 6], 8), (list(range(13)), 16)):
+        def correct(s, kfs=kfs):
+            state, applied = s.loop_closer.correct(s.state, 13, 2, S, keyframes=kfs)
+            return applied, s.loop_closer._chi2_host, s.loop_closer.routes[-1]
+
+        out_g, out_e, a, b, calls = _ab(sess, correct)
+        assert out_g == out_e and out_g[0] is True, (out_g, out_e)
+        assert out_g[2]["K_pad"] == K_pad and out_g[2]["global_ba"] == "cg"
+        assert out_g[2]["pose_graph"] == ("dense" if K_pad == 8 else "cg")
+        _assert_same(a, b, f"correction at K_pad {K_pad}")
+        kinds = [c["kind"] for c in calls]
+        assert kinds.count("gba") == 2 + lc.lc.global_ba_iters
+        assert kinds.count("correct") == (1 if K_pad == 8 else 22)
+    held = {key[1] for key in sess._graphs.programs if key[0] == "correct"}
+    assert held == {16}, held
+
+
+def test_bootstrap_program_equals_op_by_op_on_cuda(cuda):
+    """Frames 0 and 1 through the ingest and bootstrap programs (captured in
+    `prewarm`) and op by op: the same state and BoW rows, bit for bit; one
+    host read of the bootstrap's outcome; K3's eigh and svd3 in its
+    replay."""
+    from monocular_slam_tpu_torch.utils import graph
+
+    runs = []
+    for use_graphs in (True, False):
+        sess, seq = _closer_session(cuda, use_graphs)
+        n0 = graph.Readback.reads
+        for i in range(2):
+            sess.add_frame_features(seq.frames[i], seq.k, float(i))
+        torch.cuda.synchronize()
+        runs.append((sess, graph.Readback.reads - n0))
+    (g, rg), (e, re) = runs
+    assert g.stats[1].tracked and e.stats[1].tracked and rg == re == 1
+    for n, x, y in zip(g.state._fields, g.state, e.state):
+        assert torch.equal(x, y), n
+    assert torch.equal(g.loop_closer._db, e.loop_closer._db)
+    assert any(key[0] == "bootstrap" for key in g.capture_s)
+    boot = [c for c in g.program_calls if c["kind"] == "bootstrap"]
+    assert len(boot) == 1
+    assert boot[0]["launches"]["small_eigh"] >= 1 and boot[0]["launches"]["svd3"] >= 1

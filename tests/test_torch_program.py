@@ -340,12 +340,13 @@ def test_step_functions_have_no_host_round_trip(course, vocab):
     for fn in (lambda: x.sum().item(), lambda: bool(x[0] > 1), lambda: x[x > 1],
                lambda: x[torch.tensor(1)], lambda: torch.tensor(2.0), lambda: x.tolist(),
                lambda: torch.linalg.eigh(torch.eye(3)),
-               lambda: graph.cond(torch.tensor(True), lambda: 1, lambda: 2)):
+               lambda: graph.cond(torch.tensor(True), lambda: 1, lambda: 2),
+               lambda: x.clone().__setitem__(1, 5.0)):  # a copy to the card's element
         with pytest.raises(HostSyncError), sync_audit():
             fn()
     with sync_audit():
         y = x.clone()
-        y[1] = 5.0  # a number stored by indexing is a fill on a card
+        y[1] = torch.full((), 5.0)  # a device value stored by indexing
         graph.cond(True, lambda: 1, lambda: 2)
 
 
