@@ -13,6 +13,11 @@
     python3 chip_profile.py k3parent [ROOT]  # k3ab's parent's-calls route alone, package from ROOT
     python3 chip_profile.py k3 [ROOT]      # K3 alone at chip_smoke.py's K3 shapes, package from ROOT
     python3 chip_profile.py cgsteps  # chip_smoke.py's long phase at the reference's PCG steps and the port's
+    python3 chip_profile.py cliproc  # the cli course in fresh processes and after other courses, frame by frame
+    python3 chip_profile.py cliproc bisect [k3]  # the cli course after each step of k3ab's routes
+    python3 chip_profile.py cliproc trace  # the closer's stages of the cli course after k3ab's routes
+    python3 chip_profile.py drivers  # the ported drivers at full size (compile_profile cold first)
+    python3 chip_profile.py capturegc  # which unreachable cycles a collection inside a capture breaks on
 
 `cgdense`: the loop course of `chip_smoke.py`, then global BA on its
 perturbed final state through the CG route at 50, 100, 200 and 400 PCG
@@ -70,7 +75,9 @@ eigengap exceeds 1e-3 of the largest, as `chip_smoke.py`'s k3 phase
 does); and on K3 through the captured programs (the session's
 route). Prints, per course and route, the outcome (closures, ATE, the
 near-identity gate's drifts; or the distance from the reference's run)
-and the calls' agreement. With `generator` the loop course's noise frames
+and the calls' agreement; then the cli course in a fresh process
+(`cliproc-child`), against which each route's cli run is compared as
+`cliproc` compares its runs. With `generator` the loop course's noise frames
 are the `torch.Generator` draw they were before the reference's threefry
 draw replaced it.
 
@@ -85,6 +92,31 @@ one process, the loop closer's CG routes at the reference's PCG step
 counts (50 for global BA, 100 for the pose graph) and at the port's
 (`GLOBAL_BA_CG_ITERS`, `POSE_GRAPH_CG_ITERS`): tracked, ATE, closures,
 closure stage seconds.
+
+`cliproc`: `chip_smoke.py`'s cli course through `run.main` several ways,
+to find where the outcome depends on the process: (a) twice as the smoke's
+CLI subprocess (`--verbose`); (b) in fresh child processes
+(`chip_profile.py cliproc-child ROOT OUT [--verbose]`) with and without
+`--verbose`; (c) in this process, first with nothing before it, then after
+the key-3 course, after the loop course and after the session course (as
+`k3ab` runs them). Each run but (a) records, after every `add_frame`, bit
+hashes of the input image, the frame's keypoints and descriptors, its
+associations, its pose, every pose and the map (`frame_records`), and its
+outcome rows. Prints, for each pair of runs, whether the trajectory files
+are equal byte for byte and the first frame and field at which the
+records differ.
+
+`capturegc`: for each kind of object an unreachable reference cycle may
+hold (`GARBAGE`: a `graph.Words` refilled once, a started
+`graph.Readback`, a captured `graph.Program`, a recorded
+`torch.cuda.Event`, a pinned tensor copied to the card, a device tensor),
+a fresh child process (`capturegc-child KIND ROUTE`) makes the resource,
+captures a program whose body hands it to a new unreachable reference
+cycle, its only owner, and then allocates enough for the cyclic
+collector (thresholds 1, 1, 1) to run inside the capture, and replays it. ROUTE `raw` captures with
+`torch.cuda.graph` alone, `program` through `graph.Program`. Prints one
+JSON object a case: whether the cycle was collected inside the capture,
+whether the capture and its replay succeeded, and the error if not.
 
 `cli`: `chip_smoke.py`'s cli course (200 frames of the long run's orbit
 written as a TUM directory) through `run.main` in this process with every
@@ -130,6 +162,7 @@ import contextlib
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -687,14 +720,18 @@ K3_SITES = {
 def k3_sites(missing_ok: bool = False, **fns):
     """Every site of each kind named (`K3_SITES`) bound to the function
     given for it, for the duration; all restored after. With `missing_ok`
-    (an earlier tree's package) a site that tree lacks is left out."""
+    (an earlier tree's package) a site that tree lacks is left out. Every
+    site's module is imported before the first swap: a module imported for
+    the first time inside the swap would bind the swapped function by name
+    (`from ... import det3x3`) and keep it after the restore."""
     import importlib
 
+    mods = {mod: importlib.import_module(mod) for kind in fns for mod, _ in K3_SITES[kind]}
     undo = []
     try:
         for kind, fn in fns.items():
             for mod, attr in K3_SITES[kind]:
-                m = importlib.import_module(mod)
+                m = mods[mod]
                 if missing_ok and not hasattr(m, attr):
                     continue
                 undo.append((m, attr, getattr(m, attr)))
@@ -838,7 +875,7 @@ def k3_ab(smi: str, generator: bool = False) -> int:
                 key3, _, _ = cs.run_key3_course(eager=eager)
                 loop, _ = cs.run_loop(frames, real, poses_gt, k, voc, "bundled", eager=eager)
                 sess = cs.run_session(imgs, s_gt, s_k, count_syncs=False, eager=eager)
-                cli, _ = cs._run_main_inprocess(cs.cli_args(course["root"], f"{work}/out{n}"))
+                cli = recorded_cli(course["root"], f"{work}/out{n}", False)
             print(json.dumps({
                 "route": route,
                 "key3": {m: key3[m] for m in ("tracked_equal", "keyframes_equal", "key_equal",
@@ -852,6 +889,21 @@ def k3_ab(smi: str, generator: bool = False) -> int:
                 # over the four courses' calls
                 "k3_against_torch_linalg": {m: {**r, "n": sorted(r["n"])} for m, r in agree.items()},
             }), flush=True)
+        # the cli course in a fresh process, against each route's run in this one
+        fresh = os.path.join(work, "fresh")
+        proc = subprocess.run([sys.executable, str(cs.ROOT / "chip_profile.py"), "cliproc-child",
+                               course["root"], fresh], capture_output=True, text=True,
+                              cwd=str(cs.ROOT), timeout=cs.CLI_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"fresh cli child: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+        print(json.dumps({"fresh process cli": json.loads(proc.stdout.strip().splitlines()[-1])}),
+              flush=True)
+        traj = open(os.path.join(fresh, "trajectory.txt"), "rb").read()
+        for n, route in enumerate(routes):
+            out = f"{work}/out{n}"
+            print(json.dumps({"route": route, "cli_against_a_fresh_process": {
+                "trajectory_equal": open(os.path.join(out, "trajectory.txt"), "rb").read() == traj,
+                **_first_difference(out, fresh)}}), flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"device": smi}), flush=True)
@@ -880,6 +932,568 @@ def first_calls() -> dict:
             ms.append((time.perf_counter() - t0) * 1e3)
         out[name] = ms
     return out
+
+
+RECORD_FIELDS = ("image", "keypoints", "descriptors", "associations", "pose", "poses", "map")
+
+
+def _bit_hash(t: torch.Tensor) -> torch.Tensor:
+    """An int64 hash of a tensor's bits, on its device (no host read); a
+    float's NaNs hash as one NaN and -0 as +0 (values, not payloads)."""
+    t = t.detach().reshape(-1)
+    if t.is_floating_point():
+        t = torch.where(torch.isnan(t), torch.nan, t + 0.0)
+    if t.dtype == torch.float32:
+        t = t.view(torch.int32)
+    elif t.dtype == torch.float64:
+        t = t.view(torch.int64)
+    x = t.to(torch.int64)
+    w = torch.arange(x.numel(), device=x.device, dtype=torch.int64) * 2654435761 + 1
+    return (x * w).sum()
+
+
+@contextlib.contextmanager
+def frame_records(rows: list):
+    """After every `SlamSession.add_frame`, one int64 row of `RECORD_FIELDS`
+    bit hashes appended to `rows` (device tensors)."""
+    from monocular_slam_tpu_torch.slam import session
+
+    add = session.SlamSession.add_frame
+
+    def recorded(self, img, *a, **kw):
+        out = add(self, img, *a, **kw)
+        st, i = self.state, self._next - 1
+        slot = st.slot_of[i].clamp_min(0).long()
+        im = torch.as_tensor(np.ascontiguousarray(img)) if not torch.is_tensor(img) else img
+        rows.append(torch.stack([
+            _bit_hash(im.to(st.poses.device)), _bit_hash(st.kp_uv[slot]),
+            _bit_hash(st.desc[slot]), _bit_hash(st.feat_point[slot]),
+            _bit_hash(st.poses[i]) + _bit_hash(st.pose_valid[i]),
+            _bit_hash(st.poses) + _bit_hash(st.pose_valid),
+            _bit_hash(st.points * st.point_valid[:, None]) + _bit_hash(st.n_points)]))
+        return out
+
+    sessions = []
+    init = session.SlamSession.__init__
+
+    def keep(self, *a, **kw):
+        init(self, *a, **kw)
+        sessions.append(self)
+
+    session.SlamSession.add_frame = recorded
+    session.SlamSession.__init__ = keep
+    try:
+        yield sessions
+    finally:
+        session.SlamSession.add_frame = add
+        session.SlamSession.__init__ = init
+
+
+OUTCOME_FIELDS = ("tracked", "n_inliers", "n_new_points", "n_fused", "n_culled", "is_keyframe",
+                  "chi2_before", "chi2_after", "cand_j", "cand_score")
+
+
+def recorded_cli(root: str, out: str, verbose: bool) -> dict:
+    """`run.main` on the cli course under `frame_records`; writes
+    OUT/records.npz (the hashes, the outcome rows, the closures) and returns
+    the summary."""
+    import chip_smoke as cs
+
+    rows: list = []
+    with frame_records(rows) as sessions:
+        summary, _ = cs._run_main_inprocess(cs.cli_args(root, out) + (["--verbose"] if verbose
+                                                                      else []))
+    sess = sessions[-1]
+    outcomes = np.array([[float(getattr(s, n)) for n in OUTCOME_FIELDS] for s in sess.stats])
+    np.savez(os.path.join(out, "records.npz"), hashes=torch.stack(rows).cpu().numpy(),
+             outcomes=outcomes, closures=np.asarray(summary.get("loop_closures", [])).reshape(-1, 2))
+    return summary
+
+
+def _first_difference(a: str, b: str) -> dict:
+    """Where two runs' records first differ: the frame and the fields of
+    its hash row, or the first outcome row and its fields."""
+    with np.load(os.path.join(a, "records.npz")) as fa, np.load(os.path.join(b, "records.npz")) as fb:
+        ha, hb, oa, ob = fa["hashes"], fb["hashes"], fa["outcomes"], fb["outcomes"]
+    out = {"hash_rows": [len(ha), len(hb)]}
+    n = min(len(ha), len(hb))
+    bad = np.nonzero((ha[:n] != hb[:n]).any(1))[0]
+    if len(bad):
+        f = int(bad[0])
+        out["first_frame"] = f
+        out["fields"] = [RECORD_FIELDS[c] for c in np.nonzero(ha[f] != hb[f])[0]]
+    m = min(len(oa), len(ob))
+    bad = np.nonzero(((oa[:m] != ob[:m]) & ~(np.isnan(oa[:m]) & np.isnan(ob[:m]))).any(1))[0]
+    if len(bad):
+        f = int(bad[0])
+        out["first_outcome_frame"] = f
+        out["outcome_fields"] = {OUTCOME_FIELDS[c]: [oa[f, c], ob[f, c]]
+                                 for c in np.nonzero(oa[f] != ob[f])[0]}
+    return out
+
+
+def cliproc_child(argv) -> int:
+    """`cliproc-child ROOT OUT [--verbose | --eager]`: one recorded CLI run
+    in a fresh process (with `--eager`, its session op by op)."""
+    from monocular_slam_tpu_torch.utils.device import apply_precision_policy
+
+    apply_precision_policy()
+    if argv[2:] == ["--trace"]:
+        summary = traced_cli(argv[0], argv[1])
+    else:
+        with op_by_op_sessions() if argv[2:] == ["--eager"] else contextlib.nullcontext():
+            summary = recorded_cli(argv[0], argv[1], argv[2:] == ["--verbose"])
+    print(json.dumps(summary), flush=True)
+    return 0
+
+
+class _Holder:
+    """A bare object to hang CUDA resources and reference cycles on."""
+
+
+def _resource(kind: str) -> _Holder:
+    """An object holding one `kind` of CUDA resource (see `capturegc`),
+    used once on the card and in no reference cycle."""
+    from monocular_slam_tpu_torch.utils import graph
+
+    h = _Holder()
+    dev = torch.device("cuda")
+    if kind == "words":
+        h.res = graph.Words(4, dev)
+        h.res.fill(np.arange(4))
+    elif kind == "readback":
+        h.res = graph.Readback(4, dev).start()
+    elif kind == "program":
+        x = torch.zeros(8, device=dev)
+        h.res = graph.Program(lambda: x.add_(1), stream=torch.cuda.Stream(dev))
+    elif kind == "event":
+        h.res = torch.cuda.Event()
+        h.res.record()
+    elif kind == "pinned":
+        h.res = torch.arange(256, dtype=torch.float32).pin_memory()
+        h.dev = torch.empty(256, device=dev)
+        h.dev.copy_(h.res, non_blocking=True)
+    elif kind == "tensor":
+        h.res = torch.ones(1 << 20, device=dev)
+    else:
+        raise ValueError(kind)
+    torch.cuda.synchronize()
+    return h
+
+
+GARBAGE = ("words", "readback", "program", "event", "pinned", "tensor")
+
+
+def capturegc_child(kind: str, route: str) -> int:
+    """`capturegc-child KIND ROUTE`: one case of `capturegc`."""
+    import gc
+    import weakref
+
+    from monocular_slam_tpu_torch.utils import graph
+
+    dev = torch.device("cuda")
+    x = torch.arange(1024, dtype=torch.float32, device=dev)
+    pending = [_resource(kind)]
+    ref = weakref.ref(pending[0])
+    seen = {}
+
+    def body():
+        y = x * 2.0
+        if graph.capturing():
+            cycle = _Holder()  # a young cycle, the resource's only owner, unreachable
+            cycle.me, cycle.res = cycle, pending.pop()
+            del cycle
+            junk = [[i] for i in range(2000)]  # the collector may run during these
+            del junk
+            seen["collected_in_capture"] = ref() is None
+        return y + 1.0
+
+    body()
+    torch.cuda.synchronize()
+    gc.set_threshold(1, 1, 1)
+    out = {"kind": kind, "route": route}
+    try:
+        if route == "raw":
+            g, s = torch.cuda.CUDAGraph(), torch.cuda.Stream(dev)
+            with torch.cuda.graph(g, stream=s):
+                y = body()
+            g.replay()
+        else:
+            prog = graph.Program(body, stream=torch.cuda.Stream(dev))
+            y = prog.replay()
+        torch.cuda.synchronize()
+        out.update(ok=bool(torch.equal(y, x * 2.0 + 1.0)), error=None)
+    except Exception as e:  # noqa: BLE001 (the case's outcome is what it reports)
+        out.update(ok=False, error=f"{type(e).__name__}: {str(e).splitlines()[0]}")
+    gc.set_threshold(700, 10, 10)
+    out.update(seen)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def capture_gc(smi: str) -> int:
+    """`capturegc`: every kind of `GARBAGE` on both routes, a child each."""
+    rows = []
+    for kind in GARBAGE:
+        for route in ("raw", "program"):
+            r = subprocess.run([sys.executable, __file__, "capturegc-child", kind, route],
+                               capture_output=True, text=True, timeout=300)
+            lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+            row = json.loads(lines[-1]) if lines else {
+                "kind": kind, "route": route, "ok": False,
+                "error": f"exit {r.returncode}: {r.stderr.strip().splitlines()[-1:]}"}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    print(json.dumps({"device": smi, "capturegc": rows}), flush=True)
+    return 0
+
+
+def cli_proc(smi: str) -> int:
+    import itertools
+    import shutil
+    import tempfile
+
+    import chip_smoke as cs
+    from monocular_slam_tpu_torch.datasets import render
+    from monocular_slam_tpu_torch.retrieval import vocabulary
+
+    work = tempfile.mkdtemp(prefix="chip_profile_cliproc_")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(cs.ROOT)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    runs: dict[str, dict] = {}
+    try:
+        course = cs.cli_course(work)
+        root = course["root"]
+
+        def child(name, cmd):
+            out = os.path.join(work, name)
+            proc = subprocess.run(cmd(out), capture_output=True, text=True, env=env,
+                                  cwd=str(cs.ROOT), timeout=cs.CLI_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise AssertionError(f"{name}: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+            runs[name] = {"out": out, "summary": json.loads(proc.stdout.strip().splitlines()[-1])}
+
+        for n in (1, 2):  # (a) the smoke's subprocess
+            child(f"a{n} CLI subprocess -v", lambda out: [
+                sys.executable, "-m", "monocular_slam_tpu_torch.run", *cs.cli_args(root, out),
+                "--verbose"])
+        for v in ("", " -v"):  # (b) fresh children, recorded
+            child(f"b fresh child{v}", lambda out, v=v: [
+                sys.executable, str(cs.ROOT / "chip_profile.py"), "cliproc-child", root, out,
+                *(["--verbose"] if v else [])])
+
+        def here(name, verbose=False):
+            out = os.path.join(work, name)
+            runs[name] = {"out": out, "summary": recorded_cli(root, out, verbose)}
+
+        here("c0 in process, first")  # (c) in this process
+        key3, _, _ = cs.run_key3_course()
+        here("c1 after key-3")
+        frames, real, poses_gt, k = cs._loop_frames(torch.device("cuda"))
+        cs.run_loop(frames, real, poses_gt, k, vocabulary.load_default(), "bundled")
+        del frames
+        here("c2 after key-3, loop")
+        imgs, s_gt, s_k = render.render_sequence(seed=11, n_frames=cs.N_FRAMES, wh=cs.WH,
+                                                 device="cuda")
+        cs.run_session(imgs, s_gt, s_k, count_syncs=False)
+        del imgs
+        here("c3 after key-3, loop, session")
+        here("c4 again, -v", verbose=True)
+        for name, r in runs.items():
+            s = r["summary"]
+            print(json.dumps({"run": name, "tracked": s["tracked"], "ate_rmse": s["ate_rmse"],
+                              "closures": s.get("loop_closures")}), flush=True)
+        trajs = {n: open(os.path.join(r["out"], "trajectory.txt"), "rb").read()
+                 for n, r in runs.items()}
+        for a, b in itertools.combinations(runs, 2):
+            row = {"pair": [a, b], "trajectory_equal": trajs[a] == trajs[b]}
+            if all(os.path.exists(os.path.join(runs[x]["out"], "records.npz")) for x in (a, b)):
+                row |= _first_difference(runs[a]["out"], runs[b]["out"])
+            print(json.dumps(row), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"device": smi}), flush=True)
+    return 0
+
+
+def cli_bisect(smi: str, which: str = "linalg") -> int:
+    """`cliproc bisect [k3]`: the cli course in a fresh process, then in
+    this process after each step of `k3ab generator`'s first two routes in
+    turn (with `k3`: its K3 routes op by op, unchecked then checked against
+    `torch.linalg`, after a fresh op-by-op run in a child), each time
+    recorded and compared with the fresh run (the first step after which
+    they differ is the one that leaves state behind)."""
+    import shutil
+    import tempfile
+
+    import chip_smoke as cs
+    from monocular_slam_tpu_torch.datasets import render
+    from monocular_slam_tpu_torch.ops import small_eigh
+    from monocular_slam_tpu_torch.retrieval import vocabulary
+
+    cs.loop_noise = generator_noise
+    work = tempfile.mkdtemp(prefix="chip_profile_clibisect_")
+    try:
+        course = cs.cli_course(work)
+        root = course["root"]
+        fresh = os.path.join(work, "fresh")
+        proc = subprocess.run([sys.executable, str(cs.ROOT / "chip_profile.py"), "cliproc-child",
+                               root, fresh], capture_output=True, text=True, cwd=str(cs.ROOT),
+                              timeout=cs.CLI_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"fresh cli child: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+        traj = open(os.path.join(fresh, "trajectory.txt"), "rb").read()
+        frames, real, poses_gt, k = cs._loop_frames(torch.device("cuda"))
+        imgs, s_gt, s_k = render.render_sequence(seed=11, n_frames=cs.N_FRAMES, wh=cs.WH,
+                                                 device="cuda")
+        voc = vocabulary.load_default()
+        linalg = dict(eigh=small_eigh.eigh_plain, svd3=small_eigh.svd3_plain)
+
+        def route(fns, what):
+            def step():
+                with k3_sites(**fns), op_by_op_sessions():
+                    if what == "key3":
+                        cs.run_key3_course(eager=True)
+                    elif what == "loop":
+                        cs.run_loop(frames, real, poses_gt, k, voc, "bundled", eager=True)
+                    elif what == "session":
+                        cs.run_session(imgs, s_gt, s_k, count_syncs=False, eager=True)
+                    else:
+                        cs._run_main_inprocess(cs.cli_args(root, os.path.join(work, "opcli")))
+            return step
+
+        def checked(kernel, plain):
+            def fn(x):
+                out = kernel(x)
+                if x.numel():
+                    plain(x)
+                return out
+            return fn
+
+        k3_checked = dict(eigh=checked(small_eigh.eigh, small_eigh.eigh_plain),
+                          svd3=checked(small_eigh.svd3, small_eigh.svd3_plain))
+        if which == "k3":
+            eager = os.path.join(work, "fresh_eager")
+            proc = subprocess.run([sys.executable, str(cs.ROOT / "chip_profile.py"),
+                                   "cliproc-child", root, eager, "--eager"], capture_output=True,
+                                  text=True, cwd=str(cs.ROOT), timeout=cs.CLI_TIMEOUT_S)
+            if proc.returncode != 0:
+                raise AssertionError(f"eager cli child: exit {proc.returncode}\n"
+                                     f"{proc.stderr[-3000:]}")
+            print(json.dumps({"fresh process, op by op": json.loads(
+                proc.stdout.strip().splitlines()[-1]), "trajectory_equal_fresh": open(
+                    os.path.join(eager, "trajectory.txt"), "rb").read() == traj,
+                **_first_difference(eager, fresh)}), flush=True)
+            steps = [(f"K3 op by op: {w}", route({}, w)) for w in ("key3", "loop", "session")]
+            steps += [(f"K3 checked against torch.linalg, op by op: {w}", route(k3_checked, w))
+                      for w in ("key3", "loop", "session", "cli")]
+        else:
+            steps = [("nothing", lambda: None)]
+            steps += [(f"torch.linalg route, op by op: {w}", route(linalg, w))
+                      for w in ("key3", "loop", "session", "cli")]
+            steps += [(f"the parent's calls, op by op: {w}", route(parent_calls(), w))
+                      for w in ("key3", "loop", "session", "cli")]
+        for n, (name, step) in enumerate(steps):
+            step()
+            out = os.path.join(work, f"after{n}")
+            summary = recorded_cli(root, out, False)
+            print(json.dumps({"after": name, "ate_rmse": summary["ate_rmse"],
+                              "closures": summary.get("loop_closures"),
+                              "trajectory_equal_fresh": open(os.path.join(
+                                  out, "trajectory.txt"), "rb").read() == traj,
+                              **_first_difference(out, fresh)}), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"device": smi}), flush=True)
+    return 0
+
+
+def drivers_full(smi: str) -> int:
+    """`drivers`: the ported drivers at their reference's sizes, each JSON
+    printed and written to chiprun_out/<driver>_cuda.json: compile_profile
+    first, in a fresh build directory before anything has loaded a kernel
+    (a true cold start), then step_profile, loop_match_scale (all four
+    sections), scaling at 1, 2 and 4 ranks, multihost over 2 processes and
+    train_vocab at its defaults."""
+    from monocular_slam_tpu_torch.benchmarks import (compile_profile, loop_match_scale,
+                                                     multihost, scaling, step_profile,
+                                                     train_vocab)
+
+    os.makedirs("chiprun_out", exist_ok=True)
+
+    def emit(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        with open(os.path.join("chiprun_out", f"{name}_cuda.json"), "w") as f:
+            json.dump(out, f, indent=1)
+        print(json.dumps({name: out, "s": time.perf_counter() - t0}), flush=True)
+
+    emit("compile_profile", lambda: compile_profile.run("cuda"))
+    emit("step_profile", lambda: step_profile.run("cuda"))
+    emit("loop_match_scale", lambda: loop_match_scale.run(device="cuda"))
+    emit("scaling", lambda: scaling.run(shards=(1, 2, 4), device="cuda"))
+    emit("multihost", lambda: multihost.run(2, device="cuda"))
+    emit("vocab_eval", lambda: train_vocab.run(device="cuda"))
+    print(json.dumps({"device": smi}), flush=True)
+    return 0
+
+
+TRACED = (("monocular_slam_tpu_torch.slam.loop_closer", "LoopCloser._sim3_device"),
+          ("monocular_slam_tpu_torch.geometry.alignment", "ransac_sim3_reproj"),
+          ("monocular_slam_tpu_torch.geometry.alignment", "_sample_indices"),
+          ("monocular_slam_tpu_torch.geometry.alignment", "horn_sim3"),
+          ("monocular_slam_tpu_torch.ops.small_eigh", "svd3"),
+          ("monocular_slam_tpu_torch.geometry.alignment", "det3x3"),
+          ("monocular_slam_tpu_torch.geometry.alignment", "_dual_reproj_err"),
+          ("monocular_slam_tpu_torch.utils.autodiff", "jacfwd"),
+          ("torch.linalg", "solve_ex"),
+          ("monocular_slam_tpu_torch.slam.loop_closer", "LoopCloser._correct_graph"),
+          ("monocular_slam_tpu_torch.optim.pose_graph", "optimize"),
+          ("monocular_slam_tpu_torch.slam.loop_closer", "LoopCloser._correct_finish"),
+          ("monocular_slam_tpu_torch.slam.loop_closer", "LoopCloser._gba_problem"),
+          ("monocular_slam_tpu_torch.optim.ba", "bundle_adjust"),
+          ("monocular_slam_tpu_torch.slam.loop_closer", "LoopCloser._gba_finish"))
+
+
+def _tree_hash(x) -> list:
+    """Bit hashes of the tensors and arrays of a nest (ints kept)."""
+    from monocular_slam_tpu_torch.utils import graph
+
+    if isinstance(x, np.ndarray):
+        return [hash(x.tobytes())]
+    if isinstance(x, (bool, int)):
+        return [int(x)]
+    if isinstance(x, float):
+        return [repr(x)]
+    if isinstance(x, dict):
+        return [h for v in x.values() for h in _tree_hash(v)]
+    if isinstance(x, (tuple, list)):
+        return [h for v in x for h in _tree_hash(v)]
+    return [int(_bit_hash(t)) for t in graph.leaves(x)]
+
+
+@contextlib.contextmanager
+def traced_calls(rows: list):
+    """Every call of `TRACED` (op by op only: a replay runs no Python)
+    appended to `rows` as (name, input hashes, output hashes)."""
+    import importlib
+
+    undo = []
+    for mod, attr in TRACED:
+        owner = importlib.import_module(mod)
+        if "." in attr:
+            cls, attr = attr.split(".")
+            owner = getattr(owner, cls)
+        orig = getattr(owner, attr)
+
+        def wrapped(*a, _orig=orig, _name=attr, **kw):
+            args = [v for v in a if not hasattr(v, "voc")] + list(kw.values())
+            h_in = _tree_hash(args)
+            out = _orig(*a, **kw)
+            rows.append((_name, h_in, _tree_hash(out)))
+            return out
+
+        setattr(owner, attr, wrapped)
+        undo.append((owner, attr, orig))
+    try:
+        yield rows
+    finally:
+        for owner, attr, orig in reversed(undo):
+            setattr(owner, attr, orig)
+
+
+def traced_cli(root: str, out: str) -> dict:
+    """The cli course op by op under `traced_calls`; writes OUT/trace.json."""
+    import chip_smoke as cs
+
+    rows: list = []
+    with traced_calls(rows), op_by_op_sessions():
+        summary, _ = cs._run_main_inprocess(cs.cli_args(root, out))
+    with open(os.path.join(out, "trace.json"), "w") as f:
+        json.dump(rows, f)
+    return summary
+
+
+def _first_trace_difference(a: str, b: str) -> dict:
+    ra = json.load(open(os.path.join(a, "trace.json")))
+    rb = json.load(open(os.path.join(b, "trace.json")))
+    out = []
+    for n, (x, y) in enumerate(zip(ra, rb)):
+        if x != y:
+            out.append({"call": n, "name": [x[0], y[0]], "inputs_equal": x[1] == y[1],
+                        "outputs_equal": x[2] == y[2],
+                        "input_fields_differing": [k for k, (p, q) in enumerate(zip(x[1], y[1]))
+                                                   if p != q][:20],
+                        "output_fields_differing": [k for k, (p, q) in enumerate(zip(x[2], y[2]))
+                                                    if p != q][:20]})
+            if len(out) == 12:
+                break
+    return {"calls": [len(ra), len(rb)], "first_differences": out,
+            "names_before": [r[0] for r in ra[max(0, out[0]["call"] - 8):out[0]["call"]]]
+            if out else []}
+
+
+def cli_trace(smi: str) -> int:
+    """`cliproc trace`: `k3ab generator`'s routes 1-3 (their courses op by
+    op), then the cli course op by op on K3 with the loop closer's stages
+    traced (`traced_calls`), against the same traced run in a fresh
+    process: the first stage call whose inputs or outputs differ."""
+    import shutil
+    import tempfile
+
+    import chip_smoke as cs
+    from monocular_slam_tpu_torch.datasets import render
+    from monocular_slam_tpu_torch.ops import small_eigh
+    from monocular_slam_tpu_torch.retrieval import vocabulary
+
+    cs.loop_noise = generator_noise
+    work = tempfile.mkdtemp(prefix="chip_profile_clitrace_")
+    try:
+        course = cs.cli_course(work)
+        root = course["root"]
+        fresh = os.path.join(work, "fresh")
+        proc = subprocess.run([sys.executable, str(cs.ROOT / "chip_profile.py"), "cliproc-child",
+                               root, fresh, "--trace"], capture_output=True, text=True,
+                              cwd=str(cs.ROOT), timeout=cs.CLI_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"fresh cli child: exit {proc.returncode}\n{proc.stderr[-3000:]}")
+        print(json.dumps({"fresh, op by op, traced": json.loads(
+            proc.stdout.strip().splitlines()[-1])}), flush=True)
+        frames, real, poses_gt, k = cs._loop_frames(torch.device("cuda"))
+        imgs, s_gt, s_k = render.render_sequence(seed=11, n_frames=cs.N_FRAMES, wh=cs.WH,
+                                                 device="cuda")
+        voc = vocabulary.load_default()
+
+        def checked(kernel, plain):
+            def fn(x):
+                out = kernel(x)
+                if x.numel():
+                    plain(x)
+                return out
+            return fn
+
+        routes = [parent_calls(), dict(eigh=small_eigh.eigh_plain, svd3=small_eigh.svd3_plain),
+                  dict(eigh=checked(small_eigh.eigh, small_eigh.eigh_plain),
+                       svd3=checked(small_eigh.svd3, small_eigh.svd3_plain))]
+        for n, fns in enumerate(routes):
+            with k3_sites(**fns), op_by_op_sessions():
+                cs.run_key3_course(eager=True)
+                cs.run_loop(frames, real, poses_gt, k, voc, "bundled", eager=True)
+                cs.run_session(imgs, s_gt, s_k, count_syncs=False, eager=True)
+                if n < 2:
+                    cs._run_main_inprocess(cs.cli_args(root, os.path.join(work, f"r{n}")))
+        with k3_sites(**routes[2]):
+            here = os.path.join(work, "after")
+            summary = traced_cli(root, here)
+        traj = open(os.path.join(fresh, "trajectory.txt"), "rb").read()
+        print(json.dumps({"after routes 1-3, op by op, traced": summary,
+                          "trajectory_equal_fresh": open(os.path.join(
+                              here, "trajectory.txt"), "rb").read() == traj,
+                          **_first_trace_difference(here, fresh)}), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"device": smi}), flush=True)
+    return 0
 
 
 def window_ab(smi: str) -> int:
@@ -916,6 +1530,10 @@ def window_ab(smi: str) -> int:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["cliproc-child"]:
+        return cliproc_child(sys.argv[2:])
+    if sys.argv[1:2] == ["capturegc-child"]:
+        return capturegc_child(*sys.argv[2:4])
     if not torch.cuda.is_available():
         print("chip_profile: needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -930,6 +1548,10 @@ def main() -> int:
         return k3_run(smi, sys.argv[2] if len(sys.argv) > 2 else None)
     if sys.argv[1:2] == ["k3parent"]:
         return k3_parent(smi, sys.argv[2] if len(sys.argv) > 2 else None)
+    if sys.argv[1:] == ["drivers"]:  # before anything loads a kernel
+        return drivers_full(smi)
+    if sys.argv[1:] == ["capturegc"]:
+        return capture_gc(smi)
     import chip_smoke as cs
     from monocular_slam_tpu_torch.ops import fast_score, hamming
     from monocular_slam_tpu_torch.retrieval import vocabulary
@@ -951,6 +1573,12 @@ def main() -> int:
         return k3_ab(smi, generator=sys.argv[2:] == ["generator"])
     if sys.argv[1:] == ["cli"]:
         return cli_run(smi)
+    if sys.argv[1:] == ["cliproc"]:
+        return cli_proc(smi)
+    if sys.argv[1:] == ["cliproc", "trace"]:
+        return cli_trace(smi)
+    if sys.argv[1:3] == ["cliproc", "bisect"]:
+        return cli_bisect(smi, sys.argv[3] if len(sys.argv) > 3 else "linalg")
     if sys.argv[1:2] == ["long"]:
         return long_profile(smi, sys.argv[2] if len(sys.argv) > 2 else None)
     print(json.dumps({"first_and_second_call_ms": first_calls()}), flush=True)

@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py program    # device, build, k3 and program only
-    python3 chip_smoke.py loop       # device, build and loop only (long, bench: the same)
+    python3 chip_smoke.py loop       # device, build and loop only (long, bench, drivers: the same)
 
 Drives the port's main paths (`monocular_slam_tpu_torch`, no JAX) at the
 benchmark's full width and checks them. Every session runs its tracked
@@ -183,18 +183,43 @@ program, except the op-by-op A/B runs of the program and loop phases:
                 (the CLI's own counts). Then the first KITTI_FRAMES frames
                 in KITTI layout through `run.main` in-process (tracked >=
                 KITTI_MIN_TRACKED) and the synthetic feature route at the
-                CLI's defaults (finite ATE).
+                CLI's defaults (finite ATE). The course stays on disk for
+                phase 16.
  14. mesh     — `viz.mesh.estimate_normals` + `poisson_mesh` on the card:
                 the cli phase's map.ply points (finite, triangles) and the
                 4000-point unit sphere at depth 5 (watertight: no boundary
                 edge; mean radius within 5% of 1); seconds of each.
+ 15. drivers  — the drivers of `monocular_slam_tpu_torch/benchmarks/` and the
+                graft entry, each through its `run()` in this process:
+                step_profile at its reference's sizes (every value finite
+                and > 0; no host sync in any chained loop, by the sync
+                debug mode; K1 exactly once in each extraction replay, at
+                least TRACK_MIN_LAUNCHES in each track and session-step
+                replay), compile_profile against this checkout's `_build/`
+                (no nvcc; every cold_s above its steady_ms; the same
+                launches per replay, BOOTSTRAP_MIN_LAUNCHES in each
+                bootstrap replay), loop_match_scale's direct-index section
+                at M = 20,000 (K2's Matches equal the dense route's, K2
+                launched in each full_pallas call), scaling at 1 and 2
+                ranks (chi2 down; 2 ranks within DIST_GLOO_TOL of 1 rank;
+                every PCG step's all-reduce 4 * 6 * F bytes), multihost
+                over 2 processes (both report, chi2 down, equal reports),
+                train_vocab cut to DRIVER_VOCAB (10^4 words, recall in
+                [0, 1]) and the graft entry (its track step launches K2 at
+                least twice; `dryrun_multichip(1)` on NCCL); seconds of
+                each.
+ 16. cli_in_process — the cli course again through `run.main` in this
+                process, after every other phase (`cli_in_process`): its
+                trajectory file equal to the cli subprocess's byte for
+                byte, the same tracked count and closures, and the cli
+                phase's limits on its own.
 
 Every phase raises on failure. Kernel launch counts are set to 0 just
 before each path is driven and read just after (a replay adds the launches
 its capture recorded; a capture's warm-up run launches for real) (in `long`, after the
 prewarm; in `cli`, the CLI subprocess counts its main loop); the kernels
-JSON reports the session's measured run under `launches` and the CLI's
-under `launches_cli`. The second-to-last line is
+JSON reports the session's measured run under `launches`, the CLI's
+under `launches_cli` and the drivers phase's under `launches_drivers`. The second-to-last line is
 the kernels JSON, the last line `{"ok": true, "device": {...}}`.
 """
 
@@ -219,7 +244,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from monocular_slam_tpu_torch.benchmarks import device_ops
+from monocular_slam_tpu_torch.benchmarks import device_ops, free_port
 from monocular_slam_tpu_torch.benchmarks.kitti_scale import timed_solve
 
 K1_SOURCE = "monocular_slam_tpu_torch/csrc/fast_score.cu"
@@ -1123,6 +1148,175 @@ def phase_bench() -> dict:
     return {"json": out, "fused_launches": fl, **summary}
 
 
+# the drivers phase: the fewest launches of each kernel a replay of a
+# stage that tracks (the tracker's window and its cross-check;
+# triangulation and the PnP refit; the PnP scale), and of the bootstrap
+TRACK_MIN_LAUNCHES = {"hamming_top2": 2, "small_eigh": 1, "svd3": 1}
+BOOTSTRAP_MIN_LAUNCHES = {"small_eigh": 1, "svd3": 1}
+DRIVER_SHARDS = (1, 2)
+DRIVER_VOCAB = dict(train_scenes=2, frames_per_scene=6, augs=1, eval_scenes=1)
+DRIVER_DIRECT_INDEX_M = (20000,)
+
+
+def _per_replay_fails(name, launches, replays, minimum, exact=()) -> list:
+    """A stage's launches over `replays` replays against the fewest a
+    replay must make (`exact`: kernels that must launch exactly so)."""
+    fails = [f"{name}: {k} launched {launches[k]} times in {replays} replays"
+             for k, v in minimum.items() if launches[k] < v * replays]
+    fails += [f"{name}: {k} launched {launches[k]} times in {replays} replays, want {v} a replay"
+              for k, v in exact if launches[k] != v * replays]
+    return fails
+
+
+def phase_drivers() -> dict:
+    """Each driver ported in this slice, in process through its `run()`:
+    step_profile and compile_profile (against this checkout's `_build/`,
+    so no nvcc runs) with the kernels' launches in the replays of each
+    stage, loop_match_scale's direct-index section at M = 20,000, scaling
+    at 1 and 2 ranks, multihost over 2 processes, a reduced train_vocab and
+    the graft entry."""
+    from monocular_slam_tpu_torch import graft_entry
+    from monocular_slam_tpu_torch.benchmarks import (compile_profile, loop_match_scale,
+                                                     multihost, scaling, step_profile,
+                                                     train_vocab)
+    from monocular_slam_tpu_torch.ops import launches
+    from monocular_slam_tpu_torch.utils import cuda_build
+
+    fails, seconds, counted = [], {}, {k: 0 for k in launches.KERNELS}
+
+    def add(c):
+        for k in counted:
+            counted[k] += c[k]
+
+    t = time.perf_counter()
+    det: dict = {}
+    sp = step_profile.run("cuda", details=det)
+    seconds["step_profile"] = time.perf_counter() - t
+    log("[drivers] step_profile " + json.dumps(sp))
+    stages = {n: {"replays": r["replays"], "syncs": r["syncs"], "launches": r["launches"]}
+              for n, r in det.items() if isinstance(r, dict) and "replays" in r}
+    log("[drivers] step_profile stages " + json.dumps(stages) + ", session step branch "
+        f"(fuse, BA, cull) {det['session_step_branch']}")
+    fails += [f"step_profile: {k} = {v}" for k, v in sp.items()
+              if k != "device" and not (np.isfinite(v) and v > 0)]
+    fails += [f"step_profile: {n}'s chained loop made {r['syncs']} host syncs"
+              for n, r in stages.items() if r["syncs"]]
+    fails += _per_replay_fails("step_profile extract", stages["extract"]["launches"],
+                               stages["extract"]["replays"], {}, (("corner_maps", 1),))
+    for n in ("track", "session_step"):
+        fails += _per_replay_fails(f"step_profile {n}", stages[n]["launches"],
+                                   stages[n]["replays"], TRACK_MIN_LAUNCHES)
+    for r in stages.values():
+        add(r["launches"])
+
+    t = time.perf_counter()
+    det = {}
+    cp = compile_profile.run("cuda", build_dir=str(cuda_build.BUILD_DIR), details=det)
+    seconds["compile_profile"] = time.perf_counter() - t
+    log("[drivers] compile_profile " + json.dumps(cp))
+    progs = {n: {k: det[n][k] for k in ("replays", "launches", "nodes")} for n in cp["programs"]}
+    log("[drivers] compile_profile replays " + json.dumps(progs))
+    fails += [f"compile_profile {n}: cold {r['cold_s']} s <= steady {r['steady_ms']} ms"
+              for n, r in cp["programs"].items() if not r["cold_s"] > r["steady_ms"] / 1e3]
+    fails += _per_replay_fails("compile_profile extract_640x480",
+                               progs["extract_640x480"]["launches"],
+                               progs["extract_640x480"]["replays"], {}, (("corner_maps", 1),))
+    for n, minimum in (("track", TRACK_MIN_LAUNCHES), ("session_step", TRACK_MIN_LAUNCHES),
+                       ("bootstrap", BOOTSTRAP_MIN_LAUNCHES)):
+        fails += _per_replay_fails(f"compile_profile {n}", progs[n]["launches"],
+                                   progs[n]["replays"], minimum)
+    for r in progs.values():
+        add(r["launches"])
+
+    t = time.perf_counter()
+    det = {}
+    di = loop_match_scale.direct_index(maps=DRIVER_DIRECT_INDEX_M, device="cuda", details=det)
+    seconds["loop_match_scale_direct_index"] = time.perf_counter() - t
+    log("[drivers] loop_match_scale " + json.dumps(di) + " " + json.dumps(det))
+    for M, r in det.items():
+        if not r["kernel_equals_dense"]:
+            fails.append(f"loop_match_scale: K2's Matches differ from the dense route's at M={M}")
+        if r["k2_launches_a_call"] < 1:
+            fails.append(f"loop_match_scale: a full_pallas call launched K2 "
+                         f"{r['k2_launches_a_call']} times at M={M}")
+        counted["hamming_top2"] += r["k2_launches_a_call"]
+
+    t = time.perf_counter()
+    det = {}
+    sc = scaling.run(shards=DRIVER_SHARDS, device="cuda", details=det)
+    seconds["scaling"] = time.perf_counter() - t
+    log("[drivers] scaling " + json.dumps(sc))
+    F = sc["frames"]
+    for solver in scaling.SOLVERS:
+        one = det[DRIVER_SHARDS[0]][0][solver]
+        for s in DRIVER_SHARDS:
+            for r in det[s]:
+                res = r[solver]
+                if not float(res["chi2_history"][-1]) < res["chi2_initial"]:
+                    fails.append(f"scaling {solver} at {s} ranks: chi2 {res['chi2_initial']} -> "
+                                 f"{float(res['chi2_history'][-1])}")
+                rel = float(np.abs(res["chi2_history"] - one["chi2_history"]).max()
+                            / np.abs(one["chi2_history"]).max())
+                pose = float(np.abs(res["poses"] - one["poses"]).max())
+                log(f"[drivers] scaling {solver}, {s} ranks, rank {r['rank']}: chi2 history "
+                    f"{rel:.3g} from 1 rank, poses {pose:.3g}")
+                if rel > DIST_GLOO_TOL["cg"][0] or pose > DIST_GLOO_TOL["cg"][1]:
+                    fails.append(f"scaling {solver} at {s} ranks: chi2 {rel:.3g}, poses "
+                                 f"{pose:.3g} from 1 rank")
+                if solver == "cg":
+                    got = set(scaling.pcg_bytes(res["collectives"], F))
+                    if got != {scaling.cg_comm_bytes_per_iter(F)}:
+                        fails.append(f"scaling cg at {s} ranks: bytes a PCG step {got}, want "
+                                     f"{scaling.cg_comm_bytes_per_iter(F)}")
+
+    t = time.perf_counter()
+    mh = multihost.run(2, device="cuda", timeout=DIST_RANK_TIMEOUT_S)
+    seconds["multihost"] = time.perf_counter() - t
+    log("[drivers] multihost " + json.dumps(mh))
+    reps = mh["reports"]
+    if not mh["ok"] or len(reps) != 2:
+        fails.append(f"multihost: {mh}")
+    else:
+        for solver in ("dense", "cg"):
+            a, b = (r[solver] for r in reps)
+            if not (a["chi2_final"] < a["chi2_initial"] and b["chi2_final"] < b["chi2_initial"]):
+                fails.append(f"multihost {solver}: chi2 did not go down: {a}, {b}")
+            if (a["chi2_initial"], a["chi2_final"]) != (b["chi2_initial"], b["chi2_final"]):
+                fails.append(f"multihost {solver}: the two reports differ: {a}, {b}")
+
+    t = time.perf_counter()
+    log("[drivers] train_vocab reduced from the reference's 12 train scenes x 24 frames, 2 "
+        "augmentations and 4 eval scenes to " + json.dumps(DRIVER_VOCAB))
+    tv = train_vocab.run(device="cuda", **DRIVER_VOCAB)
+    seconds["train_vocab"] = time.perf_counter() - t
+    log("[drivers] train_vocab " + json.dumps(tv))
+    r = tv["results"]["10k"]
+    if r["words"] != 10**4 or not 0.0 <= r["top1_recall_shifted"] <= 1.0:
+        fails.append(f"train_vocab: {r}")
+
+    t = time.perf_counter()
+    fn, args = graft_entry.entry("cuda")
+    torch.cuda.synchronize()
+    launches.reset()
+    poses, n_inl = fn(*args)
+    torch.cuda.synchronize()
+    g = launches.read()
+    add(g)
+    dry = graft_entry.dryrun_multichip(1, "cuda")
+    seconds["graft_entry"] = time.perf_counter() - t
+    log(f"[drivers] graft entry: track of frame 3, {int(n_inl)} PnP inliers, launches {g}; "
+        f"dryrun_multichip(1) on {dry[0]['backend']}: chi2 {dry[0]['chi2_initial']} -> "
+        f"{float(dry[0]['chi2_history'][-1])}")
+    if g["hamming_top2"] < 2 or not torch.isfinite(poses).all():
+        fails.append(f"graft entry: launches {g}")
+    if dry[0]["backend"] != "nccl":
+        fails.append(f"graft entry: dryrun_multichip(1) ran on {dry[0]['backend']}")
+    log("[drivers] seconds " + json.dumps(seconds) + ", launches " + json.dumps(counted))
+    if fails:
+        raise AssertionError("drivers: " + "; ".join(fails))
+    return {"launches": counted, "seconds": seconds}
+
+
 def loop_noise(dev) -> torch.Tensor:
     """The loop course's BLACKOUT noise frames on `dev`: floor(255 u), u the
     float32 threefry uniforms of `PRNGKey(LOOP_NOISE_KEY)` (the reference's
@@ -1730,7 +1924,8 @@ def phase_scale(loop_sess, loop_out, dev="cuda") -> dict:
                              f"(floor {floor})")
 
     launches.reset()
-    out["loop_match_scale"] = loop_match_scale.run(device=dev)
+    # sections 1-3; the direct-index section runs in the drivers phase
+    out["loop_match_scale"] = loop_match_scale.run(device=dev, maps=())
     k2 = launches.read()["hamming_top2"]
     out["loop_match_scale"]["k2_launches"] = k2
     log("[scale] loop_match_scale " + json.dumps(out["loop_match_scale"]))
@@ -1751,14 +1946,6 @@ def phase_scale(loop_sess, loop_out, dev="cuda") -> dict:
             raise AssertionError(f"scale: {name}: the CG route's correction differs from the "
                                  f"dense route's by more than {CG_VS_DENSE_FRAC} of it: {row}")
     return out
-
-
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _nccl_kernels(fn) -> dict:
@@ -1866,7 +2053,7 @@ def dist_rank() -> int:
 def _two_gloo_ranks() -> list:
     """Both gloo ranks as processes on the one card, rendezvous on a
     localhost port; waits for both and kills neither-finished one."""
-    port = _free_port()
+    port = free_port()
     env0 = dict(os.environ, MSLAM_COORDINATOR=f"localhost:{port}", MSLAM_NUM_PROCESSES="2",
                 PYTHONPATH=os.pathsep.join([str(ROOT)] + [
                     p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
@@ -1904,7 +2091,7 @@ def phase_dist(sess_out, loop_sess) -> dict:
     from monocular_slam_tpu_torch.parallel.mesh import make_mesh
 
     out = {}
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
                             world_size=1, rank=0)
     try:
         mesh = make_mesh(1)
@@ -2201,7 +2388,35 @@ def cli_args(root: str, out_dir: str) -> list:
             "--loop-closure", "--vocab", "default", "--out", out_dir]
 
 
+def cli_in_process(root: str, out_dir: str, sub_dir: str, sub: dict) -> dict:
+    """The cli course again through `run.main` in this process, after every
+    other phase: its trajectory file must equal the subprocess's byte for
+    byte, its tracked count and closures the subprocess's, and it must meet
+    the phase's limits on its own."""
+    t0 = time.perf_counter()
+    summary, _ = _run_main_inprocess(cli_args(root, out_dir) + ["--verbose"])
+    wall = time.perf_counter() - t0
+    with open(os.path.join(out_dir, "trajectory.txt"), "rb") as a, \
+            open(os.path.join(sub_dir, "trajectory.txt"), "rb") as b:
+        same = a.read() == b.read()
+    closures = summary.get("loop_closures", [])
+    log(f"[cli] in process: tracked {summary['tracked']}, ATE {summary['ate_rmse'] * 100:.3f} cm, "
+        f"closures {closures}, {wall:.1f} s; trajectory file equal to the subprocess's: {same}")
+    if not same:
+        raise AssertionError("cli: the in-process run's trajectory file differs from the "
+                             "subprocess's")
+    if summary["tracked"] != sub["tracked"] or closures != sub.get("loop_closures", []):
+        raise AssertionError(f"cli: in process {summary}, subprocess {sub}")
+    if summary["tracked"] < CLI_MIN_TRACKED or not summary["ate_rmse"] <= CLI_MAX_ATE_M or not any(
+            i - j >= 40 for i, j in closures):
+        raise AssertionError(f"cli: the in-process run is out of the limits: {summary}")
+    return {"summary": summary, "trajectory_equal": same, "s": wall}
+
+
 def phase_cli() -> dict:
+    """The CLI course as a subprocess, then KITTI layout and the synthetic
+    route in process. On success the course's directory stays for
+    `cli_in_process` under `work` (the caller removes it)."""
     from monocular_slam_tpu_torch.eval import compare
     from monocular_slam_tpu_torch.io import ply, trajectory
 
@@ -2274,9 +2489,11 @@ def phase_cli() -> dict:
             raise AssertionError(f"cli: synthetic route reported {synth}")
         out |= {"kitti": kitti, "synthetic": synth}
         out["map_points"] = pts  # for the mesh phase
+        out["course"] = {"work": work, "root": root, "out_dir": out_dir}
         return out
-    finally:
+    except BaseException:
         shutil.rmtree(work, ignore_errors=True)
+        raise
 
 
 def main() -> int:
@@ -2303,7 +2520,14 @@ def main() -> int:
     timed("dist", phase_dist, res, loop_sess)
     timed("long", phase_long)
     cli = timed("cli", phase_cli)
-    timed("mesh", phase_mesh, cli)
+    course = cli["course"]
+    try:
+        timed("mesh", phase_mesh, cli)
+        drivers = timed("drivers", phase_drivers)
+        timed("cli_in_process", cli_in_process, course["root"],
+              os.path.join(course["work"], "out_in_process"), course["out_dir"], cli["summary"])
+    finally:
+        shutil.rmtree(course["work"], ignore_errors=True)
     log("[done] seconds by phase " + json.dumps(seconds))
     k1 = res["k1"]
     win = k2[WINDOW]
@@ -2331,25 +2555,26 @@ def main() -> int:
          "replaces": K1_REPLACES, "launches": res["k1_launches"],
          "launches_cli": cli["kernel_launches"]["fast_corner_maps_levels"],
          **on_loop("corner_maps"), **on_bench("corner_maps"),
+         "launches_drivers": drivers["launches"]["corner_maps"],
          "max_abs_err": k1["max_abs_err"], "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None},
         {"name": "hamming_top2", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": res["k2_launches"],
          "launches_cli": cli["kernel_launches"]["hamming_top2"], **on_loop("hamming_top2"),
-         **on_bench("hamming_top2"),
+         **on_bench("hamming_top2"), "launches_drivers": drivers["launches"]["hamming_top2"],
          "max_abs_err": max(r["max_abs_err"] for r in k2.values()), "ms": win["ms"],
          "plain_ms": win["plain_ms"], "bound_ms": win["bound_ms"], "bound_by": win["bound_by"],
          "library_ms": None},
         {"name": "small_eigh", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": res["k3_launches"], **on_loop("small_eigh"),
-         **on_bench("small_eigh"),
+         **on_bench("small_eigh"), "launches_drivers": drivers["launches"]["small_eigh"],
          "max_abs_err": max(k3[n]["max_abs_err"] for n in k3 if n.startswith("eigh")),
          **{f: k3["eigh (1000, 4, 4)"][f] for f in K3_FIELDS},
          "shapes": {n: {f: k3[n][f] for f in K3_FIELDS + ("device_ms",)}
                     for n in k3 if n.startswith("eigh")}},
         {"name": "svd3", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_SVD_REPLACES, "launches": res["k3_svd_launches"], **on_loop("svd3"),
-         **on_bench("svd3"),
+         **on_bench("svd3"), "launches_drivers": drivers["launches"]["svd3"],
          "max_abs_err": max(k3[n]["max_abs_err"] for n in k3 if n.startswith("svd3")),
          **{f: k3["svd3 (1, 3, 3)"][f] for f in K3_FIELDS},
          "shapes": {n: {f: k3[n][f] for f in K3_FIELDS + ("device_ms",)}
@@ -2377,11 +2602,12 @@ def main_program() -> int:
 
 
 def main_phase(name: str) -> int:
-    """`python3 chip_smoke.py loop`, `long` or `bench`: the build and that
-    phase alone."""
+    """`python3 chip_smoke.py loop`, `long`, `bench` or `drivers`: the build
+    and that phase alone."""
     phase_device()
     phase_build()
-    {"loop": phase_loop, "long": phase_long, "bench": phase_bench}[name]()
+    {"loop": phase_loop, "long": phase_long, "bench": phase_bench,
+     "drivers": phase_drivers}[name]()
     log(f"[done] {name} phase passed")
     return 0
 
@@ -2396,6 +2622,6 @@ if __name__ == "__main__":
     from monocular_slam_tpu_torch.utils.device import apply_precision_policy
 
     apply_precision_policy()
-    if sys.argv[1:] in (["loop"], ["long"], ["bench"]):
+    if sys.argv[1:] in (["loop"], ["long"], ["bench"], ["drivers"]):
         sys.exit(main_phase(sys.argv[1]))
     sys.exit(main_program() if sys.argv[1:] == ["program"] else main())

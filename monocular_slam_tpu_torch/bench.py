@@ -18,8 +18,9 @@ Prints ONE JSON line with `bench.py`'s keys:
   2. the feature path (`synthetic.feature_sequence(PRNGKey(0))`, 40 frames
      of 1000 features) and, from its final state, the fused step
      `tracker.track` + `local_ba.local_bundle_adjust` at frame 39 as one
-     captured program chained 30 times (`kernel_fps`; the state the
-     replay leaves is copied into its inputs between replays), and
+     captured program chained 30 times (`kernel_fps`; the replay's last
+     operations copy its output state into its inputs, as in every
+     chained replay of the drivers: `benchmarks.Replayed`), and
      `cfg.ba.local_iters` LM iterations over one replayed local BA
      (`ba_iters_per_sec`).
   3. `rooflines`: K1 at 640x480 and the matcher at 1000x1000 against their
@@ -45,7 +46,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from monocular_slam_tpu_torch.benchmarks import device_label, device_ops, mean_seconds, sync
+from monocular_slam_tpu_torch.benchmarks import Replayed, device_label, device_ops, mean_seconds, sync
 
 REFERENCE_FPS_ESTIMATE = 10.0  # the reference's estimate (bench.py), not a measurement
 COURSE_SEED = 11
@@ -87,67 +88,6 @@ def bench_course(root: str, n_frames: int, wh, device):
 
 # --- chained captured programs --------------------------------------------------------
 
-class Chain:
-    """`cur = fn(cur, key)` chained from a state: on a card `fn` is captured
-    once into a program over static copies of the state (the key's words go
-    in through `graph.Words`, as the session's control words do), each
-    replay's output state is copied into those statics; on the CPU it runs
-    op by op. `step(key)` runs one link and returns its extra outputs."""
-
-    def __init__(self, fn, state, device, key=None):
-        from monocular_slam_tpu_torch.slam.state import SlamState
-        from monocular_slam_tpu_torch.utils import graph, prng
-
-        self.device = torch.device(device)
-        self.fn = fn
-        self.program = None
-        if self.device.type != "cuda":
-            self.state = state
-            return
-        with torch.inference_mode(False):
-            self.static = [x.clone() for x in state]
-        self.words = graph.Words(2, self.device)
-        if key is not None:
-            self.words.fill(prng.split(key)[0])
-
-        def run():
-            st, extra = fn(SlamState(*self.static), self.words.dev)
-            return tuple(st), extra
-
-        stream = torch.cuda.Stream(self.device)
-        with torch.inference_mode():
-            self.program = graph.Program(run, stream=stream)
-        self.reset(state)
-
-    def reset(self, state) -> None:
-        if self.program is None:
-            self.state = state
-            return
-        for buf, x in zip(self.static, state):
-            buf.copy_(x)
-
-    def step(self, key=None):
-        from monocular_slam_tpu_torch.slam.state import SlamState
-        from monocular_slam_tpu_torch.utils import graph, prng
-
-        if self.program is None:
-            with torch.inference_mode():
-                self.state, extra = self.fn(self.state, key)
-            return extra
-        if key is not None:
-            self.words.fill(prng.split(key)[0])
-        out_state, extra = self.program.replay()
-        graph.copy_leaves(self.static, SlamState(*out_state))
-        return extra
-
-    def current(self):
-        from monocular_slam_tpu_torch.slam.state import SlamState
-
-        if self.program is None:
-            return self.state
-        return SlamState(*[x.clone() for x in self.static])
-
-
 def fused_step(cfg, i: int):
     """`bench.py`'s `frame_step`: `tracker.track` then
     `local_ba.local_bundle_adjust` at frame i; the key is a host key on the
@@ -173,7 +113,7 @@ def local_ba_step(cfg, i: int):
     """`bench.py`'s `ba_only`: one `local_bundle_adjust` at frame i."""
     from monocular_slam_tpu_torch.slam import local_ba
 
-    def fn(state, key):
+    def fn(state):
         it = torch.full((), i, dtype=torch.int64, device=state.poses.device)
         b = local_ba.local_bundle_adjust(state, it, cfg)
         return b.state, b.chi2_final
@@ -187,11 +127,11 @@ def bench_fused_step(cfg, warm_state, device, i: int, n_rep: int = N_REP):
     chain, each link's (tracked, inliers, new points), the kernels'
     launches over the n_rep replays)."""
     from monocular_slam_tpu_torch.ops import launches
-    from monocular_slam_tpu_torch.utils import prng
+    from monocular_slam_tpu_torch.utils import graph, prng
 
     dev = torch.device(device)
     key = prng.PRNGKey(FUSED_KEY)
-    chain = Chain(fused_step(cfg, i), warm_state, dev, key)
+    chain = Replayed(fused_step(cfg, i), warm_state, dev, key, extra=True)
     chain.step(key)  # the reference's first (compiling) call
     chain.reset(warm_state)
     if dev.type == "cuda":
@@ -200,7 +140,7 @@ def bench_fused_step(cfg, warm_state, device, i: int, n_rep: int = N_REP):
     sync(dev)
     t0 = time.perf_counter()
     for r in range(n_rep):
-        links.append(chain.step(prng.fold_in(key, r)))
+        links.append(graph.cloned(chain.step(prng.fold_in(key, r))))
     sync(dev)
     dt = (time.perf_counter() - t0) / n_rep
     counted = launches.read() if dev.type == "cuda" else None
@@ -212,7 +152,7 @@ def bench_ba_iters(cfg, warm_state, device, i: int, n_rep: int = N_REP):
     over the seconds of one replay, chained n_rep times. Returns
     (iterations a second, seconds a call, the chain)."""
     dev = torch.device(device)
-    chain = Chain(local_ba_step(cfg, i), warm_state, dev)
+    chain = Replayed(local_ba_step(cfg, i), warm_state, dev, extra=True)
     chain.step()
     chain.reset(warm_state)
     sync(dev)
@@ -257,10 +197,9 @@ def bench_rooflines(cfg, warm_state, device, fused_chain, ba_chain, step_dt, ba_
     def replay_ops(chain):
         if chain.program is None:
             return None
-        saved = [x.clone() for x in chain.static]
-        n = device_ops(chain.program.replay, dev)
-        for buf, x in zip(chain.static, saved):
-            buf.copy_(x)
+        saved = chain.current()
+        n = device_ops(chain.step, dev)
+        chain.reset(saved)
         return n
 
     W, H = wh

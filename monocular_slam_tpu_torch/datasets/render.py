@@ -132,13 +132,16 @@ def render_frame(pose: torch.Tensor, k: torch.Tensor, wh, planes: Planes,
 
 
 def render_sequence(seed: int = 11, n_frames: int = 60, wh=(640, 480), radius: float = 1.8,
-                    ang_step: float = 0.06, tex_size: int = 2048, device=None, key=None, k=None):
+                    ang_step: float = 0.06, tex_size: int = 2048, device=None, key=None, k=None,
+                    quantize: bool = True):
     """The rendered orbit inside the box room, textured from
     `PRNGKey(seed)` (or from `key`, a (2,) uint32 key, when given), seen
     through `k` (default: `SYNTH_K` scaled to `wh`). Returns (images
     (F, H, W) float32 tensor on `device` (default: the card), quantized to
-    integers in [0, 255] as the reference's PNG export stores them;
-    poses_gt (F, 3, 4) numpy world->camera; k (4,) numpy)."""
+    integers in [0, 255] as the reference's PNG export stores them, or
+    with `quantize` False the renderer's floats, as the reference's
+    `render_sequence` returns them; poses_gt (F, 3, 4) numpy world->camera;
+    k (4,) numpy)."""
     device = resolve_device(device)
     W, H = wh
     if k is None:
@@ -152,7 +155,8 @@ def render_sequence(seed: int = 11, n_frames: int = 60, wh=(640, 480), radius: f
     kt = torch.as_tensor(k, dtype=torch.float32, device=device)
     pt = torch.as_tensor(poses, device=device)
     imgs = torch.stack([render_frame(pt[i], kt, wh, planes, textures) for i in range(n_frames)])
-    imgs = torch.clamp(imgs, 0.0, 255.0).to(torch.uint8).to(torch.float32)
+    if quantize:
+        imgs = torch.clamp(imgs, 0.0, 255.0).to(torch.uint8).to(torch.float32)
     return imgs, poses, k
 
 

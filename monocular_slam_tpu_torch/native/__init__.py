@@ -3,9 +3,10 @@ trajectory parser in C++ (`slamio.cpp`, the port's own copy of the JAX
 package's), bound with ctypes, plus an 8-bit grey PNG writer on stdlib
 `zlib` (the renderer's export).
 
-The library is built with `g++` at first use into `_build/` beside the
-package, keyed by a hash of the source (as `utils/cuda_build.py` keys the
-CUDA kernels), and linked against zlib. Nothing falls back to another
+The library is built with `g++` at first use into the build directory of
+`utils/cuda_build.py` (`_build/` beside the package unless a driver sets
+another with `cuda_build.use_build_dir`), keyed by a hash of the source as
+the CUDA kernels are, and linked against zlib. Nothing falls back to another
 decoder: a failed build raises with the compiler's message, a failed decode
 with the decoder's.
 """
@@ -23,8 +24,9 @@ from pathlib import Path
 
 import numpy as np
 
+from monocular_slam_tpu_torch.utils import cuda_build
+
 SRC = Path(__file__).resolve().parent / "slamio.cpp"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 _lock = threading.Lock()
 _lib = None
 
@@ -52,10 +54,11 @@ def build(force: bool = False) -> Path:
     returns the library path. Raises with the compiler's output when g++
     fails."""
     tag = hashlib.sha256(SRC.read_bytes()).hexdigest()[:16]
-    out = BUILD_DIR / f"libslamio_{tag}.so"
+    build_dir = cuda_build.BUILD_DIR
+    out = build_dir / f"libslamio_{tag}.so"
     if out.exists() and not force:
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
     cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(SRC), "-o", str(tmp),
            "-lz", "-pthread"]

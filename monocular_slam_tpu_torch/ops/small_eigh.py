@@ -22,7 +22,8 @@ launch adds one to its counter (`small_eigh` or `svd3` in
 that fails to build or launch raises. On CPU tensors they return
 `eigh_plain` / `svd3_plain`, which are `torch.linalg.eigh` and
 `torch.linalg.svd` (an eigenvector's sign, and a repeated eigenvalue's
-basis, may differ from the kernel's).
+basis, may differ from the kernel's), `eigh` with NaN for a matrix that
+holds a non-finite entry, where the CPU routine would raise.
 """
 
 from __future__ import annotations
@@ -76,6 +77,16 @@ def eigh_plain(A: torch.Tensor):
     return torch.linalg.eigh(A)
 
 
+def _eigh_cpu(A: torch.Tensor):
+    """`eigh_plain`, with XLA's answer for a matrix holding a non-finite
+    entry: NaN values and vectors (torch's CPU routine raises on it, e.g.
+    when a failed PnP pose reaches the triangulation)."""
+    bad = ~torch.isfinite(A).flatten(-2).all(-1)[..., None]
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    w, V = eigh_plain(torch.where(bad[..., None], eye, A))
+    return torch.where(bad, torch.nan, w), torch.where(bad[..., None], torch.nan, V)
+
+
 def svd3_plain(M: torch.Tensor):
     return torch.linalg.svd(M)
 
@@ -98,9 +109,10 @@ def _check(err: int, name: str):
 
 def eigh(A: torch.Tensor):
     """(eigenvalues, eigenvectors) of symmetric (..., n, n): the kernel on a
-    CUDA tensor, `torch.linalg.eigh` on a CPU tensor."""
+    CUDA tensor, `torch.linalg.eigh` on a CPU tensor (NaN for a matrix
+    with a non-finite entry)."""
     if A.device.type == "cpu":
-        return eigh_plain(A)
+        return _eigh_cpu(A)
     if not A.is_cuda:
         raise ValueError(f"small_eigh.eigh: unsupported device {A.device}")
     A = _prepare("small_eigh.eigh", A, MAX_N)

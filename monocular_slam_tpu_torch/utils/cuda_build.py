@@ -20,6 +20,15 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 
 
+def use_build_dir(path) -> Path:
+    """Build and load every kernel, and the native decoder
+    (`native/slamio.cpp`), under `path` from now on (a library this process
+    has already loaded stays loaded); returns the directory used before."""
+    global BUILD_DIR
+    prev, BUILD_DIR = BUILD_DIR, Path(path)
+    return prev
+
+
 def nvcc() -> str:
     for cand in (
         os.environ.get("CUDA_HOME") and os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"),

@@ -13,7 +13,8 @@ reference's `jax.jit` of the step and of `lax.cond` inside it).
   `torch.cuda.CUDAGraph` after a warm-up run on the capture stream (a
   first run loads libraries and fills caches, which a capture must not
   do); each `replay()` reruns it on the current stream with no host work
-  beyond the launch. The kernels count their own launches on the card
+  beyond the launch. Python's cyclic collector is paused while it
+  captures (`gc_paused`). The kernels count their own launches on the card
   (`ops/launches.py`), so a replay is counted where it runs. A failure to
   capture raises: nothing falls back to eager runs.
 - `Programs`: a session's programs, captured on one stream into one graph
@@ -33,6 +34,8 @@ another program's replay lives there.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 
 import numpy as np
@@ -42,6 +45,23 @@ import torch
 def capturing() -> bool:
     """True while the current CUDA stream records a graph."""
     return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+@contextlib.contextmanager
+def gc_paused():
+    """Python's cyclic collector off for the block, and back as it was
+    after it. A collection inside a capture frees whatever unreachable
+    cycles hold; a captured graph freed there invalidates the capture, which
+    then fails at its end ("operation failed due to a previous error during
+    capture"). torch no longer collects before a capture, so the cycles
+    wait for the first collection after it instead."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 def cond(pred, true_fn, false_fn, *operands):
@@ -72,7 +92,7 @@ class Program:
         stream.synchronize()
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, pool=pool, stream=stream):
+        with gc_paused(), torch.cuda.graph(self.graph, pool=pool, stream=stream):
             self.outputs = fn()
         torch.cuda.current_stream().wait_stream(stream)
         self.capture_s = time.perf_counter() - t0

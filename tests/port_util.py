@@ -153,40 +153,14 @@ def uniforms(key, n_hyp: int, n: int) -> np.ndarray:
 # module, which imports JAX without `tests/conftest.py`'s CPU pinning.
 
 
-def spawn_world(tmp_path, world: int, cases: str, inputs: dict) -> list:
-    """Run this module's function `cases(rank, inputs) -> dict` on `world`
-    gloo ranks on the CPU (one intra-op thread each), rendezvous through a
-    file under `tmp_path`. Returns each rank's dict, rank order."""
-    import pickle
+def spawn_world(world: int, cases: str, inputs: dict) -> list:
+    """Run this module's function `cases(rank, inp=inputs) -> dict` on
+    `world` gloo ranks on the CPU (`monocular_slam_tpu_torch.benchmarks.
+    spawn_world`: one intra-op thread each, a file rendezvous in a fresh
+    temporary directory). Returns each rank's dict, rank order."""
+    from monocular_slam_tpu_torch.benchmarks import spawn_world as spawn
 
-    import torch.multiprocessing as mp
-
-    with open(tmp_path / "inputs.pkl", "wb") as f:
-        pickle.dump(inputs, f)
-    mp.spawn(_rank_main, args=(world, str(tmp_path), cases), nprocs=world, join=True)
-    out = []
-    for r in range(world):
-        with open(tmp_path / f"rank{r}.pkl", "rb") as f:
-            out.append(pickle.load(f))
-    return out
-
-
-def _rank_main(rank: int, world: int, tmp: str, cases: str) -> None:
-    import pickle
-
-    import torch.distributed as dist
-
-    from monocular_slam_tpu_torch.parallel import distributed
-
-    torch.set_num_threads(1)
-    distributed.initialize(f"file://{tmp}/rendezvous", world, rank, device="cpu")
-    with open(f"{tmp}/inputs.pkl", "rb") as f:
-        inputs = pickle.load(f)
-    out = globals()[cases](rank, inputs)
-    with open(f"{tmp}/rank{rank}.pkl", "wb") as f:
-        pickle.dump(out, f)
-    dist.barrier()
-    dist.destroy_process_group()
+    return spawn(world, f"port_util:{cases}", {"inp": inputs}, "cpu")
 
 
 def ba_problem_numpy(prob) -> dict:

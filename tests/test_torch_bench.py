@@ -201,8 +201,19 @@ def test_kitti_scale_writes_the_reference_keys(tmp_path):
 
 def test_loop_match_scale_writes_the_reference_keys():
     """`benchmarks.loop_match_scale` at a small size: the keys of
-    `loop_match_scale_r02.json` at both levels."""
-    got = loop_match_scale.run(db_frames=50, n_feat=64, map_points=300, device="cpu", n=2)
+    `loop_match_scale_r02.json` at both levels for sections 1-3, then one
+    `direct_index_vs_full_<M>` row per map size with the keys the JAX
+    driver's section 4 writes (its AST: no committed record has them)."""
+    got = loop_match_scale.run(db_frames=50, n_feat=64, map_points=300, device="cpu", n=2,
+                               maps=(256, 512))
     want = json.loads((ROOT / "benchmarks" / "loop_match_scale_r02.json").read_text())
-    assert _nested_keys(got) == _nested_keys(want)
+    rows = [k for k in got if k.startswith("direct_index_vs_full_")]
+    assert rows == ["direct_index_vs_full_256", "direct_index_vs_full_512"] == list(got)[-2:]
+    assert _nested_keys({k: v for k, v in got.items() if k not in rows}) == _nested_keys(want)
     assert got["map_scale_match"]["n_map_points"] == 300 and got["map_scale_match"]["ms"] > 0
+    tree = ast.parse((ROOT / "benchmarks" / "loop_match_scale.py").read_text())
+    section4 = next(n.value for n in ast.walk(tree) if isinstance(n, ast.Assign)
+                    and ast.unparse(n.targets[0]) == "out[f'direct_index_vs_full_{M}']")
+    for k in rows:
+        assert list(got[k]) == [key.value for key in section4.keys]
+        assert got[k]["n_map_points"] == int(k.rsplit("_", 1)[1])

@@ -943,3 +943,64 @@ def test_bench_small_on_cuda(cuda, tmp_path):
     fl = det["fused_launches"]
     assert fl["hamming_top2"] >= 4 and fl["small_eigh"] >= 2 and fl["svd3"] >= 2, fl
     assert out["rooflines"]["session_step"]["device_ops"] > 100
+
+
+@pytest.mark.parametrize("kind", ["words", "readback", "program", "event", "pinned"])
+def test_capture_is_not_broken_by_a_collection(cuda, kind):
+    """One kind of CUDA resource handed, inside a `graph.Program` capture,
+    to a new unreachable reference cycle, its only owner, with the
+    collector's thresholds at 1: the capture pauses the collector, so the
+    cycle outlives the capture, the replay is right, and the cycle is
+    collected after it (`chip_profile.py capturegc` shows which captures a
+    collection inside them breaks)."""
+    import gc
+    import weakref
+
+    from monocular_slam_tpu_torch.utils import graph
+
+    class Holder:
+        pass
+
+    h = Holder()
+    if kind == "words":
+        h.res = graph.Words(4, cuda)
+        h.res.fill(np.arange(4))
+    elif kind == "readback":
+        h.res = graph.Readback(4, cuda).start()
+    elif kind == "program":
+        z = torch.zeros(8, device=cuda)
+        h.res = graph.Program(lambda: z.add_(1), stream=torch.cuda.Stream(cuda))
+    elif kind == "event":
+        h.res = torch.cuda.Event()
+        h.res.record()
+    else:
+        h.res = torch.arange(256, dtype=torch.float32).pin_memory()
+        h.dev = torch.empty(256, device=cuda)
+        h.dev.copy_(h.res, non_blocking=True)
+    torch.cuda.synchronize()
+    pending, ref, seen = [h], weakref.ref(h), {}
+    del h
+    x = torch.arange(64, dtype=torch.float32, device=cuda)
+
+    def body():
+        if graph.capturing():
+            cycle = Holder()
+            cycle.me, cycle.res = cycle, pending.pop()
+            del cycle
+            junk = [[i] for i in range(2000)]
+            del junk
+            seen["alive"] = ref() is not None
+        return x * 2.0 + 1.0
+
+    old = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        prog = graph.Program(body, stream=torch.cuda.Stream(cuda))
+        y = prog.replay()
+        torch.cuda.synchronize()
+    finally:
+        gc.set_threshold(*old)
+    assert seen["alive"]
+    assert torch.equal(y, x * 2.0 + 1.0)
+    gc.collect()
+    assert ref() is None

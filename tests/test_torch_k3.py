@@ -186,6 +186,22 @@ def test_emulated_svd3_degenerate(kind):
     assert 1 <= sweeps <= 6
 
 
+def test_cpu_eigh_nan_for_nonfinite_only():
+    """`eigh` on the CPU: a matrix with a non-finite entry comes out NaN
+    (XLA's answer; torch's CPU routine raises on it), the others are
+    `eigh_plain`'s, which stays the bare `torch.linalg.eigh`."""
+    A = torch.as_tensor(np.random.default_rng(4).normal(size=(3, 4, 4)))
+    A = A + A.transpose(-1, -2)
+    A[1, 2, 0] = np.inf
+    w, V = small_eigh.eigh(A)
+    assert torch.isnan(w[1]).all() and torch.isnan(V[1]).all()
+    keep = torch.tensor([0, 2])
+    wp, Vp = small_eigh.eigh_plain(A[keep])
+    assert torch.equal(w[keep], wp) and torch.equal(V[keep], Vp)
+    with pytest.raises(Exception):
+        small_eigh.eigh_plain(A)
+
+
 def test_emulated_svd3_nan_stops():
     U, S, Vt, sweeps = emu.svd3(np.full((3, 3), np.nan))
     assert sweeps == 1 and np.isnan(S).all()
@@ -254,6 +270,46 @@ def test_k3ab_sites_cover_every_binding():
     with chip_profile.k3_sites(**dict.fromkeys(chip_profile.K3_SITES, sentinel)):
         assert all(getattr(importlib.import_module(m), a) is sentinel for _, m, a in sites)
     assert not any(getattr(importlib.import_module(m), a) is sentinel for _, m, a in sites)
+
+
+K3AB_FIRST_IMPORT = r"""
+import importlib, sys
+import chip_profile
+sites = [(m, a) for ss in chip_profile.K3_SITES.values() for m, a in ss]
+assert "monocular_slam_tpu_torch.geometry.alignment" not in sys.modules
+with chip_profile.k3_sites(**chip_profile.parent_calls()):
+    pass
+from monocular_slam_tpu_torch.geometry import pnp
+from monocular_slam_tpu_torch.ops import small_eigh
+from monocular_slam_tpu_torch.utils import linalg
+want = {"det3x3": linalg.det3x3, "eigh": small_eigh.eigh, "svd3": small_eigh.svd3,
+        "svdvals3": small_eigh.svdvals3, "scale_and_rotation": pnp.scale_and_rotation}
+left = [(m, a) for m, a in sites if getattr(importlib.import_module(m), a) is not want[a]]
+assert not left, left
+print("restored", len(sites))
+"""
+
+
+def test_k3ab_sites_restore_modules_first_imported_inside():
+    """`k3_sites` must leave every site bound to its own function even
+    when a site's module is first imported by the swap itself (otherwise
+    `chip_profile.py k3ab` gave 3.863 cm on the cli course where every
+    fresh run gives 4.222). In a fresh interpreter where
+    `geometry.alignment` is not yet imported, the parent route's swap and
+    restore must leave `alignment.det3x3` the closed form; when the module
+    was imported inside the swap, it bound `torch.linalg.det` by name and
+    kept it, so every later route of the process fit its Sim3s with it."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", K3AB_FIRST_IMPORT], capture_output=True,
+                         text=True, cwd=str(root), timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(root)))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "restored" in out.stdout
 
 
 def test_pnp_scale_and_rotation_apart_is_the_reference_calls():

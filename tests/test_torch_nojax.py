@@ -92,6 +92,24 @@ prob = ba.BAProblem(poses, X + 0.01, kk, cam, pt, uv, torch.ones(120),
 res = sharded_ba.distributed_bundle_adjust(prob, make_mesh(device="cpu"), n_iters=3)
 assert float(res.chi2_history[-1]) < float(res.chi2_initial)
 dist.destroy_process_group()
+# the drivers: each module imported above; their problems and the graft entry
+for n in ("benchmarks.step_profile", "benchmarks.compile_profile", "benchmarks.scaling",
+          "benchmarks.multihost", "benchmarks.train_vocab", "graft_entry"):
+    assert pkg.__name__ + "." + n in names, n
+from monocular_slam_tpu_torch import graft_entry
+from monocular_slam_tpu_torch.benchmarks import multihost, scaling, train_vocab
+assert scaling.ba_problem(4, 50, 10, "cpu").uv.shape == (40, 2)
+assert multihost.ba_problem(4, 50, 10, "cpu").uv.shape == (40, 2)
+assert scaling.cg_comm_bytes_per_iter(32) == 768
+assert graft_entry.dryrun_problem("cpu").uv.shape == (256, 2)
+fn, ex = graft_entry.entry("cpu")
+assert int(fn(*ex)[1]) > 0
+from monocular_slam_tpu_torch.benchmarks import Replayed
+chain = Replayed(lambda x: x + 1.0, torch.zeros(()), "cpu")
+chain.step()
+assert float(chain.current()) == 1.0
+aug = train_vocab.augment(np.full((8, 8), 100.0, np.float32), np.random.RandomState(7))
+assert aug.shape == (8, 8) and aug.dtype == np.float32
 print("modules", len(names))
 """
 

@@ -54,10 +54,10 @@ def inputs():
 
 
 @pytest.fixture(scope="module")
-def world(inputs, tmp_path_factory):
+def world(inputs):
     """Every case on 4 gloo ranks, spawned once."""
     data = {k: v for k, v in inputs.items() if k != "jax"}
-    return spawn_world(tmp_path_factory.mktemp("world"), 4, "parallel_cases", data)
+    return spawn_world(4, "parallel_cases", data)
 
 
 @pytest.fixture(scope="module")
