@@ -46,7 +46,8 @@ def build_argparser() -> argparse.ArgumentParser:
                         "launch counts")
     p.add_argument(
         "--profile", default=None, metavar="LOGDIR",
-        help="capture a torch.profiler trace of the main loop (LOGDIR/trace.json)",
+        help="capture a torch.profiler trace of the main loop (LOGDIR/trace.json) and the "
+             "session's spans on the same clock (LOGDIR/spans.json)",
     )
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", help="torch device (default: the card)")
@@ -65,7 +66,7 @@ def main(argv=None) -> int:
     from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
     from monocular_slam_tpu_torch.slam.session import SlamSession
     from monocular_slam_tpu_torch.utils.device import resolve_device
-    from monocular_slam_tpu_torch.utils.profiling import device_trace
+    from monocular_slam_tpu_torch.utils.profiling import chrome_base_ns, device_trace
 
     dev = resolve_device(args.device)
     cfg = SlamConfig(
@@ -87,7 +88,8 @@ def main(argv=None) -> int:
             voc = None  # trained after the first frames below
         lc = ("pending", voc)
 
-    sess = SlamSession(cfg, seed=args.seed, run_ba=not args.no_ba, device=dev)
+    sess = SlamSession(cfg, seed=args.seed, run_ba=not args.no_ba, device=dev,
+                       trace=bool(args.profile))
 
     # --- dataset ------------------------------------------------------------
     gt_poses = None
@@ -187,6 +189,9 @@ def main(argv=None) -> int:
 
             torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
+    if args.profile:
+        sess.tracer.to_chrome(os.path.join(args.profile, "spans.json"), sess.stats,
+                              base_ns=chrome_base_ns(os.path.join(args.profile, "trace.json")))
 
     # --- outputs ------------------------------------------------------------
     poses, valid, ts = sess.trajectory()

@@ -58,10 +58,24 @@ same seed gives the reference's draws and its trajectory.
 `prewarm` pays the one-time costs (kernel builds, captures, functorch's
 first-use imports) before frame 0; `add_frame_from_buffer` takes frames
 from a buffer already on the device.
+
+`SlamSession(..., trace=True)` records into `sess.tracer`
+(`utils/profiling.Tracer`): per frame the spans `frame` (the whole
+`add_*` call), `prep` (undistortion, slot, keys, control words, staging),
+`launch.track`, `wait.flags` and `launch.map` (the host inside the two
+replays and blocked on the flags between them), `drain` (the lagged
+processing) with a `program.<kind>` span per `_run` and a `capture` span
+per capture, each carrying the frame whose outcome it processes; the
+device's clock at the tracked step's parts, stamped inside its programs
+(`Tracer.mark`) and brought back with the ring row (`FrameStats.device_ms`);
+and per frame the host's waits (flag reads, `Readback` reads, `FrameStats`
+and `Words` waits that blocked), replays and captures. Off (the default),
+`tracer` is None and the programs are the same, node for node.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -82,7 +96,7 @@ from monocular_slam_tpu_torch.slam import loop_closer as lc_mod
 from monocular_slam_tpu_torch.slam import state as state_mod
 from monocular_slam_tpu_torch.slam.config import SlamConfig
 from monocular_slam_tpu_torch.slam.state import SlamState
-from monocular_slam_tpu_torch.utils import graph, prng
+from monocular_slam_tpu_torch.utils import graph, prng, profiling
 from monocular_slam_tpu_torch.utils.device import resolve_device
 from monocular_slam_tpu_torch.utils.scatter import mark, take
 
@@ -115,9 +129,12 @@ class FrameStats:
     event; reading any field resolves the row once (waiting on the event
     only if the device has not reached it yet). `launches` is, for a
     tracked step, the launches of each kernel (`ops/launches.KERNELS`) that
-    the card counted between the step's start and end, else None."""
+    the card counted between the step's start and end, else None.
+    `device_ms` is, for a tracked step of a tracing session, the device
+    milliseconds of each of its parts that ran (`profiling.stamp_ms`), else
+    None."""
 
-    __slots__ = ("frame", "loop_closed", "_row", "_counts", "_event", "_vals")
+    __slots__ = ("frame", "loop_closed", "_row", "_counts", "_event", "_stamps", "_vals")
     waits = 0  # resolutions in this process that had to wait on the device
 
     def __init__(self, frame: int, **kw):
@@ -126,20 +143,22 @@ class FrameStats:
         object.__setattr__(self, "_row", None)
         object.__setattr__(self, "_counts", None)
         object.__setattr__(self, "_event", None)
+        object.__setattr__(self, "_stamps", None)
         vals = {
             "tracked": False, "n_inliers": 0, "n_new_points": 0,
             "n_fused": 0, "n_culled": 0, "is_keyframe": False,
             "last_kf": -1, "cand_j": -1, "cand_n": 0,
             "chi2_before": math.nan, "chi2_after": math.nan,
-            "cand_score": 0.0, "cand_floor": 0.0, "launches": None,
+            "cand_score": 0.0, "cand_floor": 0.0, "launches": None, "device_ms": None,
         }
         vals.update(kw)
         object.__setattr__(self, "_vals", vals)
 
-    def _set_host(self, row: torch.Tensor, counts: torch.Tensor, event) -> None:
+    def _set_host(self, row: torch.Tensor, counts: torch.Tensor, event, stamps) -> None:
         object.__setattr__(self, "_row", row)
         object.__setattr__(self, "_counts", counts)
         object.__setattr__(self, "_event", event)
+        object.__setattr__(self, "_stamps", stamps)
 
     def _resolve(self) -> None:
         row = self._row
@@ -152,6 +171,9 @@ class FrameStats:
         self._vals.update(unpack(row.numpy()))
         c = self._counts.numpy()
         self._vals["launches"] = dict(zip(launches.KERNELS, (int(n) for n in c[1] - c[0])))
+        if self._stamps is not None:
+            self._vals["device_ms"] = profiling.stamp_ms(self._stamps.numpy())
+            object.__setattr__(self, "_stamps", None)
         object.__setattr__(self, "_row", None)
         object.__setattr__(self, "_counts", None)
         object.__setattr__(self, "_event", None)
@@ -240,14 +262,15 @@ def mapping_predicates(i, ok, is_kf, run_map, cfg: SlamConfig, run_ba: bool):
             cull if m.enabled else False)
 
 
-def mapping_block(state: SlamState, i: torch.Tensor, preds, cfg: SlamConfig):
+def mapping_block(state: SlamState, i: torch.Tensor, preds, cfg: SlamConfig, mark=None):
     """The mapping block under `graph.cond`, as the reference's `lax.cond`s:
     at keyframe rate fuse -> windowed local BA -> cull, per frame local BA
     -> fuse -> cull, each under its predicate of `mapping_predicates` (the
     reference nests the keyframe-rate fuse and cull conds inside its
     `run_map` cond; here they are siblings, which runs the same work since
-    a keyframe always runs the block). Returns (state, chi2_before,
-    chi2_after, n_fused, n_culled)."""
+    a keyframe always runs the block). A tracing session's `mark(part)`
+    stamps the end of each part that runs (`Tracer.mark`). Returns (state,
+    chi2_before, chi2_after, n_fused, n_culled)."""
     dev = state.poses.device
     i = i.reshape(()).long()
     m = cfg.mapping
@@ -258,14 +281,20 @@ def mapping_block(state: SlamState, i: torch.Tensor, preds, cfg: SlamConfig):
     def _fuse(st):
         r = mapping.fuse(st, i, radius_px=m.fuse_radius_px, max_hamming=m.fuse_max_hamming,
                          image_wh=cfg.image_wh)
+        if mark is not None:
+            mark("fuse")
         return r.state, r.n_associated.to(torch.int32)
 
     def _cull(st):
         r = mapping.cull_points(st, i, min_obs=m.cull_min_obs, grace=m.cull_grace)
+        if mark is not None:
+            mark("cull")
         return r[0], r[1].to(torch.int32)
 
     def _ba(st):
         r = local_ba.local_bundle_adjust(st, i, cfg)
+        if mark is not None:
+            mark("local_ba")
         return r.state, r.chi2_initial, r.chi2_final
 
     def _pass(st):
@@ -286,14 +315,19 @@ def mapping_block(state: SlamState, i: torch.Tensor, preds, cfg: SlamConfig):
 
 def session_step(state: SlamState, i: torch.Tensor, last_kf: torch.Tensor,
                  pnp_key: torch.Tensor, cfg: SlamConfig,
-                 run_ba: bool) -> tuple[SlamState, StepStats]:
+                 run_ba: bool, mark=None) -> tuple[SlamState, StepStats]:
     """One step for an initialized session (the reference's
     `_session_step`): `track_step`, then `mapping_block`. `i` and `last_kf`
     are 0-d device tensors, `pnp_key` the (2,) int64 device words of
-    `split(key)[0]` for the session's subkey `key` (`prng.key_on`)."""
+    `split(key)[0]` for the session's subkey `key` (`prng.key_on`). A
+    tracing session's `mark` stamps the tracker's end, the mapping block's
+    start and its parts."""
     t = track_step(state, i, last_kf, pnp_key, cfg)
+    if mark is not None:
+        mark("tracker")
+        mark("map_start")
     preds = mapping_predicates(i.reshape(()).long(), t.ok, t.is_keyframe, t.run_map, cfg, run_ba)
-    state, chi2_0, chi2_1, n_fused, n_culled = mapping_block(t.state, i, preds, cfg)
+    state, chi2_0, chi2_1, n_fused, n_culled = mapping_block(t.state, i, preds, cfg, mark)
     return state, StepStats(
         tracked=t.ok, n_inliers=t.n_inliers, n_new_points=t.n_new_points,
         chi2_before=chi2_0, chi2_after=chi2_1, n_fused=n_fused, n_culled=n_culled,
@@ -354,13 +388,16 @@ def pack_step(state: SlamState, stats: StepStats, db, i: torch.Tensor, voc, lcfg
 class _Row:
     """One ring row: host control words, the host image staging buffers,
     the packed stats' host copy, the kernels' launch counters at the step's
-    start and end, the event behind them and the frame that owns it."""
+    start and end, a tracing session's device stamps (else None), the event
+    behind them and the frame that owns it."""
 
-    def __init__(self, pin: bool):
+    def __init__(self, pin: bool, stamps: bool = False):
         self.pin = pin
         self.ctrl = torch.zeros(_CTRL_LEN, dtype=torch.int64, pin_memory=pin)
         self.stats = torch.zeros(PACKED_LEN, dtype=torch.int32, pin_memory=pin)
         self.counts = torch.zeros((2, len(launches.KERNELS)), dtype=torch.int64, pin_memory=pin)
+        self.stamps = (torch.zeros(len(profiling.SLOTS), dtype=torch.int64, pin_memory=pin)
+                       if stamps else None)
         self.event = torch.cuda.Event() if pin else None
         self.images: dict = {}  # (shape, dtype) -> host staging tensor
         self.owner: FrameStats | None = None
@@ -387,12 +424,14 @@ class SlamSession:
     vocabulary.load_default(), cfg))`. `device` defaults to the card and
     raises without one; pass `device="cpu"` to run on the CPU. On a card,
     `state` is the set of static buffers the captured step updates in
-    place: copy what you keep.
+    place: copy what you keep. With `trace`, `tracer` records the frames'
+    spans, device stamps and counters (the module's docstring); else it is
+    None.
     """
 
     def __init__(self, cfg: SlamConfig = SlamConfig(), seed: int = 0,
                  run_ba: bool = True, loop_closer: lc_mod.LoopCloser | None = None,
-                 device=None):
+                 device=None, trace: bool = False):
         self.cfg = cfg
         self.run_ba = run_ba
         self.device = resolve_device(device)
@@ -427,10 +466,13 @@ class SlamSession:
 
         cuda = self.device.type == "cuda"
         self._use_graphs = cuda  # the captured programs; cleared only by chip_smoke's A/B
-        self._ring = [_Row(pin=cuda) for _ in range(cfg.stat_lag + 1)]
+        self.tracer = profiling.Tracer(self.device) if trace else None
+        self._ring = [_Row(pin=cuda, stamps=trace) for _ in range(cfg.stat_lag + 1)]
         self._ring_next = 0
         # the session's programs (and its loop closer's): one stream, one pool
         self._graphs = graph.Programs(self.device) if cuda else None
+        if self._graphs is not None:
+            self._graphs.tracer = self.tracer
         self._io = graph.Statics(self.device)  # static inputs and outputs of the programs
         self.flag_reads = 0  # host reads of the mapping block's predicates (one a frame)
         self._calls: list = []  # (program kind, launch counters and events before, after)
@@ -466,7 +508,10 @@ class SlamSession:
         program's first use (its warm-up run commits nothing) and replayed;
         otherwise (the CPU, the card's op-by-op A/B) it runs once with
         `commit`. On the card the kernels' counters are copied on the
-        device, and an event recorded, around the call (`program_calls`)."""
+        device, and an event recorded, around the call (`program_calls`).
+        A tracing session's `program.<kind>` span covers the call."""
+        tr = self.tracer
+        span = None if tr is None else tr.begin(f"program.{key[0]}", key)
         cuda = self.device.type == "cuda"
         if cuda:
             graph_ready = not self._use_graphs or key in self._graphs.programs
@@ -483,6 +528,8 @@ class SlamSession:
         if cuda:
             ev1.record()
             self._calls.append((key, before, launches.counters(self.device).clone(), ev0, ev1))
+        if span is not None:
+            tr.end(span)
         return out
 
     @property
@@ -589,9 +636,7 @@ class SlamSession:
         """Ingest a grayscale (H, W) image in [0, 255] (numpy or tensor).
         Once initialized, a frame is one step (on a card, one replay); a
         host array reaches the card through the pinned ring."""
-        if self._initialized and self._next >= 2:
-            return self._tracked("image", img, k, timestamp, dist)
-        return self._untracked("image", img, k, timestamp, dist)
+        return self._frame("image", img, k, timestamp, dist)
 
     def add_frame_from_buffer(self, buffer: torch.Tensor, idx: int, k, timestamp: float = 0.0,
                               dist=None) -> FrameStats:
@@ -602,17 +647,43 @@ class SlamSession:
         if buffer.device.type != self.device.type or buffer.dim() != 3:
             raise ValueError(f"add_frame_from_buffer takes an (N, H, W) buffer on {self.device}, "
                              f"got {tuple(buffer.shape)} on {buffer.device}")
-        if self._initialized and self._next >= 2:
-            return self._tracked("buffer", buffer, k, timestamp, dist, j=idx)
-        return self._untracked("buffer", buffer, k, timestamp, dist, j=idx)
+        return self._frame("buffer", buffer, k, timestamp, dist, j=idx)
 
     def add_frame_features(self, feats: orb.Features, k, timestamp: float,
                            dist=None) -> FrameStats:
         """Ingest precomputed features; `dist` (radtan 5-vector) undistorts
         the keypoints first when nonzero."""
-        if self._initialized and self._next >= 2:
-            return self._tracked("features", feats, k, timestamp, dist)
-        return self._untracked("features", feats, k, timestamp, dist)
+        return self._frame("features", feats, k, timestamp, dist)
+
+    def _frame(self, path: str, frame, k, timestamp: float, dist, j: int = 0) -> FrameStats:
+        """The frame's step once initialized (two frames in), else its
+        untracked ingest; a tracing session's `frame` span around it."""
+        step = self._tracked if self._initialized and self._next >= 2 else self._untracked
+        if self.tracer is None:
+            return step(path, frame, k, timestamp, dist, j)
+        with self._frame_span():
+            return step(path, frame, k, timestamp, dist, j)
+
+    def _host_syncs(self) -> int:
+        """The host's waits on the card so far: this session's flag reads,
+        and this process's `Readback` reads and `FrameStats` and `Words`
+        waits that blocked."""
+        return self.flag_reads + graph.Readback.reads + FrameStats.waits + graph.Words.waits
+
+    @contextlib.contextmanager
+    def _frame_span(self):
+        """The `frame` span of frame `_next`, and its counters: the host's
+        waits, the replays and the captures inside it."""
+        tr, i = self.tracer, self._next
+        tr.frame = i
+        before = (self._host_syncs(), graph.Program.replays, len(self.capture_s))
+        span = tr.begin("frame")
+        try:
+            yield
+        finally:
+            tr.end(span)
+            after = (self._host_syncs(), graph.Program.replays, len(self.capture_s))
+            tr.counters[i] = dict(zip(profiling.COUNTERS, (b - a for a, b in zip(before, after))))
 
     def _host_undistort(self, path: str, frame, k, dist):
         """Precomputed features with a nonzero `dist` are undistorted before
@@ -632,6 +703,8 @@ class SlamSession:
         i = self._next
         if i >= self.cfg.max_frames:
             raise ValueError(f"frame capacity {self.cfg.max_frames} exhausted")
+        tr = self.tracer
+        prep = None if tr is None else tr.begin("prep")
         frame, dist = self._host_undistort(path, frame, k, dist)
         steer = None if path == "features" else self._steer
         # the reference's untracked frames take its feature path: keypoints
@@ -644,7 +717,7 @@ class SlamSession:
             self._ctrl_words(row, i, slot, j, k, dist, np.zeros(2, np.uint32))
             if path == "image" and not torch.is_tensor(frame):
                 frame = row.image(np.asarray(frame))
-            self._ingest_frame(path, steer, frame, row, undistort)
+            self._ingest_frame(path, steer, frame, row, undistort, prep)
         except Exception:
             self._release_slot(slot, prev)
             raise
@@ -713,10 +786,11 @@ class SlamSession:
             for buf, x in zip(self._static_input(path, frame), frame):
                 buf.copy_(x, non_blocking=True)
 
-    def _ingest_frame(self, path: str, steer, frame, row: _Row, undistort: bool) -> None:
+    def _ingest_frame(self, path: str, steer, frame, row: _Row, undistort: bool,
+                      prep) -> None:
         """An untracked frame's ingest program: the control words of `row`
         and the frame staged into the static inputs on the graph route, as
-        the tracked part of the step takes them."""
+        the tracked part of the step takes them (the end of span `prep`)."""
         if self._use_graphs:
             ctrl, _ = self._io_buffers()
             ctrl.copy_(row.ctrl, non_blocking=True)
@@ -725,6 +799,8 @@ class SlamSession:
         else:
             ctrl = row.ctrl.to(self.device, copy=True)  # the row is reused
             src = frame.to(self.device) if path == "image" else frame
+        if prep is not None:
+            self.tracer.end(prep)
         self._run(("ingest", path, steer, self._layout(path, frame), undistort),
                   self._ingest_fn(path, steer, ctrl, src, undistort))
 
@@ -824,9 +900,14 @@ class SlamSession:
         ctrl, front = self._io_buffers()
         src, static, last_kf, cfg = self._static_input(path, frame), self._state, \
             self._last_kf, self._cfg_for(steer)
+        mark = None if self.tracer is None else self.tracer.mark
 
         def run():
+            if mark is not None:
+                mark("track_start")
             state = self._ingest_step(path, steer, static, ctrl, src)
+            if mark is not None:
+                mark("front_end")
             t = track_step(state, ctrl[0], last_kf, ctrl[3:5], cfg)
             out = torch.stack([t.ok.to(torch.int32), t.n_inliers.to(torch.int32),
                                t.n_new_points.to(torch.int32), t.is_keyframe.to(torch.int32),
@@ -835,6 +916,8 @@ class SlamSession:
                 self._store(t.state)
                 last_kf.copy_(t.last_kf)
                 front.copy_(out)
+            if mark is not None:
+                mark("tracker")
             return front
 
         return self._graphs.get(key, run)
@@ -849,10 +932,13 @@ class SlamSession:
         ctrl, front = self._io_buffers()
         static, cfg = self._state, self.cfg
         db, voc, lcfg = self._closer_args()
+        mark = None if self.tracer is None else self.tracer.mark
 
         def run():
             i = ctrl[0]
-            state, c0, c1, n_f, n_c = mapping_block(static, i, preds, cfg)
+            if mark is not None:
+                mark("map_start")
+            state, c0, c1, n_f, n_c = mapping_block(static, i, preds, cfg, mark)
             stats = StepStats(tracked=front[0] != 0, n_inliers=front[1], n_new_points=front[2],
                               chi2_before=c0, chi2_after=c1, n_fused=n_f, n_culled=n_c,
                               is_keyframe=front[3] != 0, last_kf=front[5])
@@ -860,6 +946,8 @@ class SlamSession:
                 state, stats, db if graph.capturing() or db is None else db.clone(), i, voc, lcfg)
             if graph.capturing():
                 self._store(state)
+            if mark is not None:
+                mark("detect_pack")
             return packed
 
         return self._graphs.get(key, run)
@@ -868,6 +956,8 @@ class SlamSession:
         i = self._next
         if i >= self.cfg.max_frames:
             raise ValueError(f"frame capacity {self.cfg.max_frames} exhausted")
+        tr = self.tracer
+        prep = None if tr is None else tr.begin("prep")
         frame, dist = self._host_undistort(path, frame, k, dist)
         steer = None if path == "features" else self._steer
         slot, prev = self._acquire_slot(i)
@@ -880,13 +970,15 @@ class SlamSession:
                 row.counts[0].copy_(launches.counters(self.device), non_blocking=True)
             with torch.inference_mode():
                 if self._use_graphs:
-                    packed = self._replay(path, steer, frame, row, i)
+                    packed = self._replay(path, steer, frame, row, i, prep)
                 else:
-                    packed = self._eager(path, steer, frame, row)
+                    packed = self._eager(path, steer, frame, row, prep)
         except Exception:
             self._release_slot(slot, prev)
             raise
         row.stats.copy_(packed, non_blocking=True)
+        if tr is not None:
+            row.stamps.copy_(tr.stamps, non_blocking=True)
         if self.device.type == "cuda":
             row.counts[1].copy_(launches.counters(self.device), non_blocking=True)
         if row.event is not None:
@@ -894,40 +986,65 @@ class SlamSession:
         self._next += 1
         self.timestamps.append(float(timestamp))
         st = FrameStats(frame=i)
-        st._set_host(row.stats, row.counts, row.event)
+        st._set_host(row.stats, row.counts, row.event, row.stamps)
         row.owner = st
         self._enqueue(st)
         return st
 
-    def _replay(self, path: str, steer, frame, row: _Row, i: int) -> torch.Tensor:
+    def _replay(self, path: str, steer, frame, row: _Row, i: int, prep) -> torch.Tensor:
         """One tracked frame on the card: the tracked part's program, ONE
         host read of its flags (the mapping block's predicates), then the
-        matching mapping program."""
+        matching mapping program. A tracing session ends span `prep` at the
+        first launch and spans the launches and the wait."""
+        tr = self.tracer
         ctrl, _ = self._io_buffers()
         prog = self._track_program(path, steer, frame)
         ctrl.copy_(row.ctrl, non_blocking=True)
         self._stage(path, frame)
+        if tr is not None:
+            tr.end(prep)
+            span = tr.begin("launch.track")
         front = prog.replay()
+        if tr is not None:
+            tr.end(span)
         host, ev = self._io["front_host"], self._io["front_event"]
         host.copy_(front, non_blocking=True)
         ev.record()
+        if tr is not None:
+            span = tr.begin("wait.flags")
         ev.synchronize()
+        if tr is not None:
+            tr.end(span)
         self.flag_reads += 1
         ok, _, _, is_kf, run_map, _ = (bool(x) for x in host.numpy())
         preds = mapping_predicates(i, ok, is_kf, run_map, self.cfg, self.run_ba)
-        return self._map_program(tuple(bool(p) for p in preds)).replay()
+        prog = self._map_program(tuple(bool(p) for p in preds))
+        if tr is None:
+            return prog.replay()
+        with tr.span("launch.map"):
+            return prog.replay()
 
-    def _eager(self, path: str, steer, frame, row: _Row) -> torch.Tensor:
-        """The same step run op by op (the CPU, and the card's A/B)."""
+    def _eager(self, path: str, steer, frame, row: _Row, prep) -> torch.Tensor:
+        """The same step run op by op (the CPU, and the card's A/B); a
+        tracing session ends span `prep` before it and stamps its parts."""
         ctrl = row.ctrl.to(self.device, copy=True)  # the row is reused
         if path == "image":
             frame = frame.to(self.device)
+        mark = None
+        if self.tracer is not None:
+            self.tracer.end(prep)
+            mark = self.tracer.mark
+            mark("track_start")
         i, _, _, pnp_key, _, _ = self._unpack_ctrl(ctrl)
         state = self._ingest_step(path, steer, self.state, ctrl, frame)
+        if mark is not None:
+            mark("front_end")
         state, stats = session_step(state, i, self._last_kf, pnp_key, self._cfg_for(steer),
-                                    self.run_ba)
+                                    self.run_ba, mark=mark)
         db, voc, lcfg = self._closer_args()
         state, _, last_kf, packed = pack_step(state, stats, db, i, voc, lcfg)
+        if mark is not None:
+            mark("detect_pack")
         self.state = state
         self._last_kf = last_kf
         return packed
@@ -1012,12 +1129,25 @@ class SlamSession:
 
     def _drain(self, force: bool) -> None:
         """Process pending frame outcomes once they are `stat_lag` frames old
-        (all of them with `force`)."""
+        (all of them with `force`). A tracing session spans it (`drain`),
+        and what it runs carries the frame whose outcome it processes: the
+        frame whose processing dispatched FrameCulling, then each stat's."""
+        tr = self.tracer
+        span = None if tr is None else tr.begin("drain")
+        frame = None if tr is None else tr.frame
         lag = self.cfg.stat_lag
         if self._cull_pending is not None and (force or self._next - self._cull_pending[2] > lag):
+            if tr is not None:
+                tr.frame = self._cull_pending[3]
             self._cull_apply()
         while self._pending and (force or len(self._pending) > lag):
-            self._process_stat(self._pending.pop(0))
+            st = self._pending.pop(0)
+            if tr is not None:
+                tr.frame = st.frame
+            self._process_stat(st)
+        if span is not None:
+            tr.end(span)
+            tr.frame = frame
 
     def _process_stat(self, st: FrameStats) -> None:
         i = st.frame
@@ -1140,12 +1270,13 @@ class SlamSession:
                 culled.copy_(mark(F, kf_pad, keep=pos < n) & ~flags)
 
         self._run(("cull", Kb), fn)
-        self._cull_pending = (out.start(), kfs, self._next)
+        self._cull_pending = (out.start(), kfs, self._next,
+                              None if self.tracer is None else self.tracer.frame)
 
     def _cull_apply(self) -> list[int]:
         if self._cull_pending is None:
             return []
-        out, kfs, _ = self._cull_pending
+        out, kfs, _, _ = self._cull_pending
         self._cull_pending = None
         new_flags = out.get()
         culled = [f for f in kfs if not new_flags[f]]

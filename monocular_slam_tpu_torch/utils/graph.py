@@ -13,17 +13,20 @@ reference's `jax.jit` of the step and of `lax.cond` inside it).
   `torch.cuda.CUDAGraph` after a warm-up run on the capture stream (a
   first run loads libraries and fills caches, which a capture must not
   do); each `replay()` reruns it on the current stream with no host work
-  beyond the launch. Python's cyclic collector is paused while it
-  captures (`gc_paused`). The kernels count their own launches on the card
-  (`ops/launches.py`), so a replay is counted where it runs. A failure to
-  capture raises: nothing falls back to eager runs.
+  beyond the launch (`Program.replays` counts them). Python's cyclic
+  collector is paused while it captures (`gc_paused`). The kernels count
+  their own launches on the card (`ops/launches.py`), so a replay is
+  counted where it runs. A failure to capture raises: nothing falls back
+  to eager runs.
 - `Programs`: a session's programs, captured on one stream into one graph
   memory pool, keyed as the reference keys its compiled programs; the
-  session's step programs and its loop closer's share it.
+  session's step programs and its loop closer's share it. With a `tracer`
+  (`utils/profiling.Tracer`) each capture is a `capture` span.
 - `Words` / `Readback`: a program's static control words, refilled from
   pinned host memory with one host-to-device copy, and its small outputs,
   brought back with one device-to-host copy behind an event. On the CPU
-  both are plain tensors.
+  both are plain tensors. `Words.waits` and `Readback.reads` count the
+  host's waits on them.
 
 A program's function reads its static inputs and, when it commits, writes
 its results into static buffers made outside any capture (the session's
@@ -85,6 +88,8 @@ class Program:
     share; they never run concurrently). `capture_s` is the seconds the
     capture took."""
 
+    replays = 0  # every Program's replays in this process
+
     def __init__(self, fn, *, stream: torch.cuda.Stream, pool=None):
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
@@ -98,6 +103,7 @@ class Program:
         self.capture_s = time.perf_counter() - t0
 
     def replay(self):
+        Program.replays += 1
         self.graph.replay()
         return self.outputs
 
@@ -112,13 +118,17 @@ class Programs:
         self.pool = None
         self.programs: dict = {}
         self.capture_s: dict = {}
+        self.tracer = None
 
     def get(self, key, fn) -> Program:
         """The program `key`, captured from `fn()` at its first use."""
         prog = self.programs.get(key)
         if prog is None:
+            span = None if self.tracer is None else self.tracer.begin("capture", key)
             with torch.inference_mode():
                 prog = Program(fn, stream=self.stream, pool=self.pool)
+            if span is not None:
+                self.tracer.end(span)
             prog.key = key
             if self.pool is None:
                 self.pool = prog.graph.pool()
@@ -141,6 +151,8 @@ class Words:
     copy has not run yet). 32-bit float words ride bitcast, as the step's
     control row carries k and dist."""
 
+    waits = 0  # every Words' fills in this process that had to wait on the device
+
     def __init__(self, n: int, device):
         cuda = torch.device(device).type == "cuda"
         with torch.inference_mode(False):  # normal tensors: refilled in and out of it
@@ -152,6 +164,7 @@ class Words:
         """Write `parts` (ints, int arrays, float32 arrays) in order and copy
         them to the device; returns the device words."""
         if self.event is not None and not self.event.query():
+            Words.waits += 1
             self.event.synchronize()
         words = np.concatenate([_words(p) for p in parts])
         row = self.host.numpy()

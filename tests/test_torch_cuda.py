@@ -739,6 +739,69 @@ def test_step_program_equals_eager_on_cuda(cuda):
     assert any(key[0] == "map" for key in g.capture_s)
 
 
+def test_tracing_on_cuda(cuda):
+    """An image course through two sessions on the card, tracing off and on:
+    with tracing off no program holds a stamp, and with it on the track
+    program holds its 3 stamps more and each mapping program 2 and one a
+    part it runs, nothing else (device operations of one replay, by the
+    profiler); the outcomes and poses are equal; every tracked frame's
+    stamps are in order; and a replay of the track program's front end and
+    tracker by the stamps is within 2% of its first to last device
+    operation in the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from monocular_slam_tpu_torch.benchmarks import device_ops
+    from monocular_slam_tpu_torch.datasets import render
+    from monocular_slam_tpu_torch.slam.config import FrontendConfig, SlamConfig
+    from monocular_slam_tpu_torch.slam.session import SlamSession
+    from monocular_slam_tpu_torch.utils import profiling
+
+    imgs, _, k = render.render_sequence(seed=3, n_frames=12, wh=(320, 240), device=cuda)
+    cfg = SlamConfig(max_frames=16, max_points=4000, image_wh=(320, 240),
+                     frontend=FrontendConfig(n_features=600))
+    runs = {}
+    for trace in (False, True):
+        sess = SlamSession(cfg, seed=0, device=cuda, trace=trace)
+        sess.prewarm(image=True)
+        for i in range(12):
+            sess.add_frame(imgs[i].cpu().numpy(), k, i / 30.0)
+        poses, valid, _ = sess.trajectory()
+        runs[trace] = (sess, poses, valid, [
+            (s.tracked, s.n_inliers, s.n_new_points, s.is_keyframe, s.n_fused, s.n_culled,
+             s.last_kf, s.cand_j, s.cand_n, s.chi2_before, s.chi2_after) for s in sess.stats])
+    (off, p_off, v_off, s_off), (on, p_on, v_on, s_on) = runs[False], runs[True]
+    np.testing.assert_array_equal(v_off, v_on)
+    np.testing.assert_array_equal(p_off, p_on)
+    np.testing.assert_array_equal(np.array(s_off, np.float64), np.array(s_on, np.float64))
+    assert v_on.sum() >= 10
+    assert off.tracer is None and all(st.device_ms is None for st in off.stats)
+    parts = [st.device_ms for st in on.stats if st.device_ms is not None]
+    assert len(parts) >= 9
+    for ms in parts:
+        assert {"front_end", "tracker", "detect_pack"} <= set(ms) <= set(profiling.PARTS)
+        assert all(v >= 0 for v in ms.values()), ms
+    assert any("local_ba" in ms for ms in parts)
+    assert set(off._graphs.programs) == set(on._graphs.programs)
+    for key in off._graphs.programs:
+        n_off = device_ops(off._graphs.programs[key].replay, cuda)
+        n_on = device_ops(on._graphs.programs[key].replay, cuda)
+        stamps = (3 if key[0] == "track" else 2 + sum(key[1]) if key[0] == "map" else 0)
+        assert n_on - n_off == stamps, (key, n_off, n_on)
+    # the track program's stamps against the profiler's first and last operation
+    prog = next(p for key, p in on._graphs.programs.items() if key[0] == "track")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prog.replay()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.profiler.kineto_results.events()
+          if e.device_type() == torch.autograd.DeviceType.CUDA]
+    lo = min(e.start_ns() for e in ev)
+    hi = max(e.start_ns() + e.duration_ns() for e in ev)
+    assert sorted(ev, key=lambda e: e.start_ns())[0].name().startswith("span_stamp")
+    ms = profiling.stamp_ms(on.tracer.stamps.cpu().numpy())
+    assert ms["front_end"] + ms["tracker"] == pytest.approx((hi - lo) * 1e-6, rel=0.02)
+
+
 # --- the programs outside the tracked step ------------------------------------------
 
 

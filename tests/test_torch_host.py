@@ -480,16 +480,20 @@ def test_ba_stats_and_log_match_reference():
     assert len(profiling.ba_stats(res)) == 5
 
 
-def test_stage_timer_counts():
-    timer = profiling.StageTimer()
-    x = torch.ones(4)
-    for _ in range(3):
-        with timer.stage("extract", block_on=x):
-            pass
-    with timer.stage("track", block_on={"a": (x, [x])}):
-        pass
-    assert timer.counts == {"extract": 3, "track": 1}
-    assert timer.ms_per_call("extract") >= 0.0 and "x3" in timer.report()
+def test_tracer_counts():
+    tracer = profiling.Tracer("cpu")
+    for f in range(3):
+        tracer.frame = f
+        with tracer.span("frame"):
+            with tracer.span("prep"):
+                pass
+        tracer.counters[f] = {"host_syncs": 1, "replays": 2, "captures": int(f == 0)}
+    ex = tracer.export()
+    names = list(ex["spans"]["name"])
+    assert names.count("frame") == 3 and names.count("prep") == 3
+    assert ex["counters"]["frame"].tolist() == [0, 1, 2]
+    assert ex["counters"]["captures"].tolist() == [1.0, 0.0, 0.0]
+    assert (ex["spans"]["end_ns"] >= ex["spans"]["start_ns"]).all()
 
 
 def test_device_trace_writes(tmp_path):
