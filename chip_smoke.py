@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py program    # device, build, k3 and program only
+    python3 chip_smoke.py program    # device, build, k3, pose_gn and program only
     python3 chip_smoke.py loop       # device, build and loop only (long, bench, drivers: the same)
 
 Drives the port's main paths (`monocular_slam_tpu_torch`, no JAX) at the
@@ -12,8 +12,9 @@ program, except the op-by-op A/B runs of the program and loop phases:
 
   1. device   — requires CUDA; prints the card's name and power limit;
   2. build    — compiles K1 (`csrc/fast_score.cu`), K2
-                (`csrc/hamming_top2.cu`) and K3 (`csrc/small_eigh.cu`) from
-                the checkout, one nvcc each, all started together;
+                (`csrc/hamming_top2.cu`), K3 (`csrc/small_eigh.cu`) and
+                `pose_gn` (`csrc/pose_gn.cu`) from the checkout, one nvcc
+                each, all started together;
   3. draws    — the session's keyed RANSAC draws (`prng.uniform_on`, torch
                 int64 ops on the card) bit for bit against the numpy
                 `prng.uniform` / `random_bits` at the session's three shapes
@@ -44,8 +45,10 @@ program, except the op-by-op A/B runs of the program and loop phases:
                 through K2. Fails below 54/60 tracked, above 3 cm ATE, if
                 the two trajectories differ by more than 1e-6 m, below one
                 K1 launch per frame, below 2 K2 launches in any tracked
-                frame, or below one K3 eigh and one svd3 launch per tracked
-                frame; each session calls `prewarm(image=True)` first;
+                frame, below one K3 eigh and one svd3 launch per tracked
+                frame, or below two `pose_gn` launches in any tracked frame
+                (PnP's polish and the local-map refine); each session calls
+                `prewarm(image=True)` first;
  6a. k3       — K3 vs its plain version (`torch.linalg.eigh` / `svd`, also
                 the library call) at the step's shapes: eigh of (1000, 4,
                 4) and (1, 12, 12), svd3 of (1, 3, 3) and (512, 3, 3);
@@ -60,9 +63,19 @@ program, except the op-by-op A/B runs of the program and loop phases:
                 keyframes equal, poses within 1e-6 m, syncs <= 1 a frame;
                 fps of both, capture seconds and graph-pool memory of a
                 prewarmed session, a profile of frames 13-22's replays
-                (K1, K2 at least twice, K3's eigh and svd3 in every frame;
+                (K1, K2 at least twice, K3's eigh and svd3 in every frame,
+                `pose_gn` twice;
                 device operations, device ms and K3's device ms a frame)
                 and the card's idle share over them;
+ 6c. pose_gn  — the `pose_gn` kernel against the plain route of
+                `pose_ba.refine_pose` (`refine_pose_plain`) at the tracker's
+                shapes, one pose against 1000 and 2000 edges, 3 rounds:
+                rotations within POSE_GN_ROT_TOL rad, translations within
+                POSE_GN_TRANS_TOL of their length, inlier sets equal but
+                for edges within POSE_GN_GATE_EDGE of the gate, n_inliers
+                the inliers' count; the kernel's call ms and device ms, the
+                plain route's call ms, device ms a call and device
+                operations, and both routes' replay ms as captured programs;
   7. k2       — K2 vs its plain version, equal exactly in d1, d2 and idx, on
                 1000x1000 real descriptors (frames 0 and 5 of the course),
                 2000x20000 and 2000x65536 random +-1, 97x123, an all-invalid
@@ -265,7 +278,8 @@ TRAJ_TOL_M = 1e-6  # dense-window vs K2-window, and graph vs eager, session traj
 # the fewest launches of each kernel that one tracked step of an image
 # session makes (extraction; the tracker's window and its cross-check;
 # triangulation and the PnP refit; the PnP scale and `project_to_so3`)
-STEP_MIN_LAUNCHES = {"corner_maps": 1, "hamming_top2": 2, "small_eigh": 1, "svd3": 1}
+STEP_MIN_LAUNCHES = {"corner_maps": 1, "hamming_top2": 2, "small_eigh": 1, "svd3": 1,
+                     "pose_gn": 2}
 K3_SOURCE = "monocular_slam_tpu_torch/csrc/small_eigh.cu"
 # K3's kernels by name (`torch.profiler`): eigh takes the per-thread kernel
 # for n <= 4 and the warp kernel for n = 5..12
@@ -279,6 +293,17 @@ K3_SVD_REPLACES = "monocular_slam_tpu/geometry/so3.py:179"
 K3_FIELDS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 K3_TOL = 1e-5  # values relative to the largest; 1 - |<v, v_plain>|; SVD residual
 K3_GAP = 1e-3  # eigenvectors compared where the eigengap exceeds this of the largest
+# motion-only BA's Gauss-Newton route as one kernel; it takes the place of the
+# plain route's ~1,700 device operations a call, the reference's GN round
+POSE_GN_SOURCE = "monocular_slam_tpu_torch/csrc/pose_gn.cu"
+POSE_GN_REPLACES = "monocular_slam_tpu/optim/pose_ba.py:100"
+POSE_GN_EDGES = (1000, 2000)  # edges of one pose: tum1_vga's and kitti_wide's features
+POSE_GN_K = (517.306, 516.469, 318.643, 255.314)  # TUM1.yaml's fx, fy, cx, cy
+POSE_GN_ROT_TOL = 1e-5  # rad, kernel against the plain route
+POSE_GN_TRANS_TOL = 1e-5  # of the translation's length
+POSE_GN_GATE_EDGE = 1e-4  # inlier sets may differ only at edges this close to the gate
+POSE_GN_FIELDS = ("ms", "device_ms", "plain_ms", "plain_device_ms", "graph_ms",
+                  "plain_graph_ms", "plain_device_ops")
 # the loop course: the seed-11 orbit, one revolution, with LOOP_NOISE_KEY's
 # threefry noise frames after frame BLACKOUT_AFTER; its session's
 # configuration. tests/fixtures/reference_loop_course.npz is the JAX
@@ -400,14 +425,14 @@ def phase_device() -> str:
 
 
 def phase_build():
-    from monocular_slam_tpu_torch.ops import fast_score, hamming, small_eigh
+    from monocular_slam_tpu_torch.ops import fast_score, hamming, pose_gn, small_eigh
 
     t0 = time.perf_counter()
-    mods = (("K1", fast_score), ("K2", hamming), ("K3", small_eigh))
+    mods = (("K1", fast_score), ("K2", hamming), ("K3", small_eigh), ("pose_gn", pose_gn))
     with ThreadPoolExecutor(len(mods)) as ex:  # one nvcc per source, started together
         for f in [ex.submit(mod.load) for _, mod in mods]:
             f.result()
-    log(f"[build] K1, K2 and K3 built and loaded in {time.perf_counter() - t0:.2f} s")
+    log(f"[build] K1, K2, K3 and pose_gn built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, mod in mods:
         log(f"[build] {name} {mod.BUILD_INFO['path']} "
             f"(nvcc {mod.BUILD_INFO.get('seconds', 0.0):.2f} s)")
@@ -721,8 +746,9 @@ def phase_session() -> dict:
         f"steps (at least {step_min['hamming_top2']} each), K3 {k3_launches} eigh and "
         f"{k3_svd_launches} svd3 launches ({step_min['small_eigh']}-"
         f"{out['step_max']['small_eigh']} eigh and {step_min['svd3']}-"
-        f"{out['step_max']['svd3']} svd3 a tracked step), max |pose - dense-window pose| "
-        f"{traj_diff:.3g}")
+        f"{out['step_max']['svd3']} svd3 a tracked step), pose_gn {counted['pose_gn']} "
+        f"({step_min['pose_gn']}-{out['step_max']['pose_gn']} a tracked step), max |pose - "
+        f"dense-window pose| {traj_diff:.3g}")
     if out["tracked"] < MIN_TRACKED:
         raise AssertionError(f"tracked {out['tracked']} < {MIN_TRACKED}")
     if not out["ate_m"] <= MAX_ATE_M:
@@ -740,7 +766,7 @@ def phase_session() -> dict:
             "imgs": imgs, "poses_gt": poses_gt, "k": k, "ate_m": out["ate_m"], "poses": poses,
             "valid": valid, "keyframes": keyframes, "tracked_flags": tracked_flags,
             "fps_10_59": out["fps_10_59"], "k3_launches": k3_launches,
-            "k3_svd_launches": k3_svd_launches}
+            "k3_svd_launches": k3_svd_launches, "pose_gn_launches": counted["pose_gn"]}
 
 
 def _k3_inputs(dev):
@@ -848,6 +874,131 @@ def phase_k3() -> dict:
     return out
 
 
+def pose_gn_problem(batch: int, n: int, seed: int, device="cuda"):
+    """`batch` motion-only BA problems of n edges each, as the tracker meets
+    them, from a seeded torch generator: points 2-8 m ahead of a camera
+    with TUM1.yaml's intrinsics, 0.7 px of noise, a fifth of the edges 40
+    px off, a tenth masked (weight 0), the start 0.01 rad and 2 cm from the
+    truth. (T0 (batch, 3, 4), X (batch, n, 3), uv (batch, n, 2), k (4,),
+    w (batch, n)), float32 on `device`."""
+    from monocular_slam_tpu_torch.geometry import se3
+
+    g = torch.Generator().manual_seed(seed)
+    k = torch.tensor(POSE_GN_K)
+    X = torch.rand(batch, n, 3, generator=g) * torch.tensor([4.0, 3.0, 6.0])
+    X = X + torch.tensor([-2.0, -1.5, 2.0])
+    T = se3.exp(torch.randn(batch, 6, generator=g) * torch.tensor([0.1] * 3 + [0.5] * 3))
+    Xc = se3.apply(T[:, None], X)
+    uv = torch.stack([k[0] * Xc[..., 0] / Xc[..., 2] + k[2],
+                      k[1] * Xc[..., 1] / Xc[..., 2] + k[3]], -1)
+    uv = uv + 0.7 * torch.randn(batch, n, 2, generator=g)
+    uv[torch.rand(batch, n, generator=g) < 0.2] += 40.0
+    w = (torch.rand(batch, n, generator=g) > 0.1).float()
+    d = torch.randn(batch, 6, generator=g) * torch.tensor([0.01] * 3 + [0.02] * 3)
+    T0 = se3.compose(se3.exp(d), T)
+    return tuple(x.contiguous().to(device) for x in (T0, X, uv, k, w))
+
+
+def pose_gn_agreement(a, b, X, uv, k, gate: float = 5.991) -> dict:
+    """How far `a` (the kernel's `PoseBAResult`) lies from `b` (the plain
+    route's): the largest rotation angle between their poses (rad), the
+    largest translation difference over the plain translation's length,
+    the inlier flags that differ, those of them farther than
+    POSE_GN_GATE_EDGE from the gate (squared error at the plain pose, in
+    float64), whether each n_inliers counts its inliers and the two counts
+    differ by no more than the flags, and the chi2s' relative difference."""
+    from monocular_slam_tpu_torch.optim import residuals
+
+    Ra, Rb = a.T[..., :3].double(), b.T[..., :3].double()
+    fro = (Ra - Rb).flatten(-2).norm(dim=-1)
+    rot = 2.0 * torch.asin((fro / (2.0 * 2.0 ** 0.5)).clamp(max=1.0))
+    ta, tb = a.T[..., 3].double(), b.T[..., 3].double()
+    trans = (ta - tb).norm(dim=-1) / tb.norm(dim=-1).clamp(min=1e-30)
+    r = residuals.residual(b.T.double()[..., None, :, :], X.double(), k.double(), uv.double())
+    e2 = (r * r).sum(-1)
+    diff = a.inliers != b.inliers
+    off_gate = diff & ~((e2 - gate).abs() <= POSE_GN_GATE_EDGE)
+    counts = bool((a.n_inliers == a.inliers.sum(-1)).all()
+                  and ((a.n_inliers - b.n_inliers).abs() <= diff.sum(-1)).all())
+    ca, cb = a.chi2.double(), b.chi2.double()
+    chi2 = torch.where(ca == cb, 0.0, (ca - cb).abs() / cb.abs().clamp(min=1e-30))
+    return {"rot_rad": float(rot.max()), "trans_rel": float(trans.max()),
+            "inliers_differ": int(diff.sum()), "inliers_differ_off_gate": int(off_gate.sum()),
+            "n_inliers_consistent": counts, "chi2_rel": float(chi2.max())}
+
+
+def pose_gn_fails(agr: dict) -> list:
+    """What in a `pose_gn_agreement` misses the card test's tolerances."""
+    fails = []
+    if not agr["rot_rad"] <= POSE_GN_ROT_TOL:
+        fails.append(f"rotations {agr['rot_rad']} rad apart > {POSE_GN_ROT_TOL}")
+    if not agr["trans_rel"] <= POSE_GN_TRANS_TOL:
+        fails.append(f"translations {agr['trans_rel']} of their length apart > "
+                     f"{POSE_GN_TRANS_TOL}")
+    if agr["inliers_differ_off_gate"]:
+        fails.append(f"{agr['inliers_differ_off_gate']} inlier flags differ away from the gate")
+    if not agr["n_inliers_consistent"]:
+        fails.append("n_inliers does not count the inliers")
+    return fails
+
+
+def device_ms_per_call(fn, n: int = 5) -> float:
+    """Device ms of every operation one call of fn puts on the card, the
+    mean over n calls from `torch.profiler`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.1)
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+             for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / n / 1e3
+
+
+def phase_pose_gn() -> dict:
+    """`pose_gn` against the plain route (`refine_pose_plain`) on the card
+    with POSE_GN_EDGES edges, 3 rounds as the tracker's local-map refine:
+    `pose_gn_agreement` within the card test's tolerances; the kernel's
+    event-timed call and profiler device ms, the plain route's call ms,
+    device ms a call and device operations, and both captured as programs,
+    the median event-timed replay."""
+    from monocular_slam_tpu_torch.optim import pose_ba
+    from monocular_slam_tpu_torch.utils import graph
+
+    out = {}
+    for n in POSE_GN_EDGES:
+        args = tuple(x[0] if x.dim() > 1 else x for x in pose_gn_problem(1, n, seed=n))
+
+        def kern(args=args):
+            return pose_ba.refine_pose(*args, n_rounds=3, solver="gn")
+
+        def plain(args=args):
+            return pose_ba.refine_pose_plain(*args, n_rounds=3, solver="gn")
+
+        a, b = kern(), plain()
+        torch.cuda.synchronize()
+        agr = pose_gn_agreement(a, b, *args[1:4])
+        with torch.inference_mode():
+            progs = [graph.Program(fn, stream=torch.cuda.Stream()) for fn in (kern, plain)]
+        name = f"(1, {n})"
+        row = {**agr, "ms": time_ms_inference(kern), "device_ms": device_ms(kern, "pose_gn_kernel"),
+               "plain_ms": time_ms_inference(plain), "plain_device_ms": device_ms_per_call(plain),
+               "graph_ms": time_ms(progs[0].replay), "plain_graph_ms": time_ms(progs[1].replay),
+               "plain_device_ops": device_ops(plain, "cuda"),
+               "n_inliers": int(a.n_inliers), "plain_n_inliers": int(b.n_inliers)}
+        del progs
+        out[name] = row
+        log(f"[pose_gn] {name}: " + json.dumps(row))
+        fails = pose_gn_fails(agr)
+        if fails:
+            raise AssertionError(f"pose_gn {name}: " + "; ".join(fails))
+    return out
+
+
 def phase_program(sess_out) -> dict:
     """The step program on the card: the 60-frame course through the
     captured programs (with host syncs counted over frames 10-59) against
@@ -889,7 +1040,7 @@ def phase_program(sess_out) -> dict:
             n += e.count
             us += t
             for tag in ("corner_maps_levels_kernel", "hamming_top2_kernel", K3_EIGH_THREAD,
-                        K3_EIGH_WARP, K3_SVD):
+                        K3_EIGH_WARP, K3_SVD, "pose_gn_kernel"):
                 if tag in e.key:
                     names[tag] = names.get(tag, 0) + e.count
                     tag_ms[tag] = tag_ms.get(tag, 0.0) + t / 1e3
@@ -951,9 +1102,9 @@ def phase_program(sess_out) -> dict:
         fails.append(f"{graph_run['syncs_per_frame']} host syncs per frame > 1")
     if (names.get("corner_maps_levels_kernel", 0) < 10 or names.get("hamming_top2_kernel", 0) < 20
             or names.get(K3_EIGH_THREAD, 0) + names.get(K3_EIGH_WARP, 0) < 10
-            or names.get(K3_SVD, 0) < 10):
-        fails.append(f"frames 13-22's profiled replays ran {names}, not K1, K2 twice, eigh and "
-                     f"svd3 in each frame")
+            or names.get(K3_SVD, 0) < 10 or names.get("pose_gn_kernel", 0) < 20):
+        fails.append(f"frames 13-22's profiled replays ran {names}, not K1, K2 twice, eigh, "
+                     f"svd3 and pose_gn twice in each frame")
     if fails:
         raise AssertionError("program: " + "; ".join(fails))
     return out
@@ -2511,6 +2662,7 @@ def main() -> int:
     timed("draws", phase_draws)
     res = timed("session", phase_session)
     k3 = timed("k3", phase_k3)
+    pg = timed("pose_gn", phase_pose_gn)
     prog = timed("program", phase_program, res)
     k2 = timed("k2", phase_k2, res["imgs"])
     timed("lc60", phase_lc60, res)
@@ -2579,6 +2731,13 @@ def main() -> int:
          **{f: k3["svd3 (1, 3, 3)"][f] for f in K3_FIELDS},
          "shapes": {n: {f: k3[n][f] for f in K3_FIELDS + ("device_ms",)}
                     for n in k3 if n.startswith("svd3")}},
+        {"name": "pose_gn", "route": "cuda", "source": POSE_GN_SOURCE,
+         "replaces": POSE_GN_REPLACES, "launches": res["pose_gn_launches"],
+         **on_loop("pose_gn"), **on_bench("pose_gn"),
+         "launches_drivers": drivers["launches"]["pose_gn"],
+         "max_abs_err": max(r["rot_rad"] for r in pg.values()),
+         **{f: pg["(1, 1000)"][f] for f in POSE_GN_FIELDS},
+         "shapes": {n: {f: r[f] for f in POSE_GN_FIELDS} for n, r in pg.items()}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2588,13 +2747,14 @@ def main() -> int:
 
 
 def main_program() -> int:
-    """`python3 chip_smoke.py program`: the build, K3 and the step program
-    phases alone, on the session phase's course."""
+    """`python3 chip_smoke.py program`: the build, K3, pose_gn and the step
+    program phases alone, on the session phase's course."""
     from monocular_slam_tpu_torch.datasets import render
 
     phase_device()
     phase_build()
     phase_k3()
+    phase_pose_gn()
     imgs, poses_gt, k = render.render_sequence(seed=11, n_frames=N_FRAMES, wh=WH, device="cuda")
     phase_program({"imgs": imgs, "poses_gt": poses_gt, "k": k})
     log("[done] program phases passed")

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-KERNELS = ("corner_maps", "hamming_top2", "small_eigh", "svd3")
+KERNELS = ("corner_maps", "hamming_top2", "small_eigh", "svd3", "pose_gn")
 
 _counters: dict[int, torch.Tensor] = {}  # device index -> int64 (len(KERNELS),)
 

@@ -9,7 +9,10 @@ rule fires) and `solver="gn"` (min(n_iters, 3) Gauss-Newton steps with one
 monotonicity guard per round), which the tracker and PnP call.
 
 `refine_pose` takes leading batch dims, so `refine_poses_batched` (the
-reference's `vmap`) is the same call on F poses at once.
+reference's `vmap`) is the same call on F poses at once. On CUDA tensors
+`solver="gn"` is one launch of `ops/pose_gn` (`csrc/pose_gn.cu`) with the
+same round logic; CPU tensors, and `solver="lm"`, run `refine_pose_plain`
+op by op.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from monocular_slam_tpu_torch.geometry import se3
+from monocular_slam_tpu_torch.ops import pose_gn
 from monocular_slam_tpu_torch.optim import lm, residuals, robust
 
 THRESH_HUBER = 5.991**0.5
@@ -59,6 +63,29 @@ def _per_pose(c: torch.Tensor) -> torch.Tensor:
 
 
 def refine_pose(
+    T0: torch.Tensor,
+    X: torch.Tensor,
+    uv: torch.Tensor,
+    k: torch.Tensor,
+    weights: torch.Tensor,
+    n_iters: int = POSE_BA_ITER,
+    n_rounds: int = POSE_BA_ROUNDS,
+    chi2_gate: float = CHI2_GATE,
+    tau: float = TAU,
+    min_points: int = MIN_POINTS,
+    solver: str = "lm",
+) -> PoseBAResult:
+    """`refine_pose_plain`'s result; `solver="gn"` on CUDA tensors from the
+    `pose_gn` kernel (float32, contiguous, N <= `pose_gn.MAX_N`)."""
+    if solver == "gn" and T0.is_cuda:
+        return PoseBAResult(*pose_gn.refine_pose(
+            T0, X, uv, k, weights, n_iters=n_iters, n_rounds=n_rounds, chi2_gate=chi2_gate,
+            tau=tau, min_points=min_points, huber_delta=THRESH_HUBER))
+    return refine_pose_plain(T0, X, uv, k, weights, n_iters=n_iters, n_rounds=n_rounds,
+                             chi2_gate=chi2_gate, tau=tau, min_points=min_points, solver=solver)
+
+
+def refine_pose_plain(
     T0: torch.Tensor,
     X: torch.Tensor,
     uv: torch.Tensor,

@@ -701,6 +701,136 @@ def test_k3_svd3_matches_plain(cuda, batch):
     assert float((torch.linalg.det(R) - 1).abs().max()) < 1e-5
 
 
+# --- pose_gn: motion-only BA's Gauss-Newton route as one kernel ---------------
+
+
+def _pose_gn_check(args, **kw):
+    """The kernel's and the plain route's results on the same call; the
+    kernel launched exactly once; the agreement within `chip_smoke`'s
+    tolerances (the card test's)."""
+    import chip_smoke
+    from monocular_slam_tpu_torch.optim import pose_ba
+
+    before = launches.count("pose_gn")
+    a = pose_ba.refine_pose(*args, solver="gn", **kw)
+    torch.cuda.synchronize()
+    assert launches.count("pose_gn") == before + 1
+    b = pose_ba.refine_pose_plain(*args, solver="gn", **kw)
+    assert (a.T.dtype, a.inliers.dtype, a.chi2.dtype, a.n_inliers.dtype) == (
+        torch.float32, torch.bool, torch.float32, torch.int64)
+    assert (a.T.shape, a.inliers.shape, a.chi2.shape, a.n_inliers.shape) == (
+        b.T.shape, b.inliers.shape, b.chi2.shape, b.n_inliers.shape)
+    agr = chip_smoke.pose_gn_agreement(a, b, args[1], args[2], args[3])
+    assert not chip_smoke.pose_gn_fails(agr), agr
+    return a, b, agr
+
+
+@pytest.mark.parametrize("n", [1000, 2000])
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("rounds", [2, 3])
+def test_pose_gn_matches_plain(cuda, n, batch, rounds):
+    """`pose_gn` against the plain route on the tracker's problems: rotations
+    within 1e-5 rad, translations within 1e-5 of their length, inlier sets
+    equal but for edges within 1e-4 of the gate, n_inliers counting them,
+    chi2 within 1e-4; batch 1 as the tracker calls it, unbatched."""
+    import chip_smoke
+
+    T0, X, uv, k, w = chip_smoke.pose_gn_problem(batch, n, seed=31 * n + batch, device=cuda)
+    args = (T0[0], X[0], uv[0], k, w[0]) if batch == 1 else (T0, X, uv, k, w)
+    a, b, agr = _pose_gn_check(args, n_rounds=rounds)
+    assert agr["chi2_rel"] <= 1e-4, agr
+    assert bool((a.n_inliers > 0.5 * n).all())  # the refine converged: most edges inliers
+
+
+@pytest.mark.parametrize("case", ["few_valid", "all_zero", "z_zero", "z_zero_active",
+                                  "z_zero_gated", "singular"])
+def test_pose_gn_edge_cases(cuda, case):
+    """Fewer than min_points valid edges and all weights zero return T0 (and
+    its chi2 and inliers); a masked edge whose point lies at depth ~0 in the
+    camera changes nothing and is no inlier; an active edge at depth exactly
+    0 (the world's origin moved onto the camera's plane, the point there)
+    goes through `_safe_z`'s clamp: with no round its clamped residual
+    (~1e10 px) enters the chi2 as on the plain route, and with no step a
+    re-gate (at 1e4, which every other edge passes) drops it. A step with that edge active is left out: its weight times its
+    Jacobian squared grows as 1/z^3 and swamps H in float32 on either route,
+    so the two poses would agree only by chance. A system that is singular
+    (points on the optical axis, the start at the identity, tau 0: H's rows
+    for the rotation about and the shift along the axis are 0) leaves T0 as
+    the plain route's NaN guard does."""
+    import chip_smoke
+    from monocular_slam_tpu_torch.geometry import se3
+
+    T0, X, uv, k, w = (x[0] if x.dim() > 1 else x
+                       for x in chip_smoke.pose_gn_problem(1, 1000, seed=77, device=cuda))
+    kw = {"n_rounds": 3}
+    if case == "few_valid":
+        w = torch.zeros_like(w)
+        w[:2] = 1.0
+    elif case == "all_zero":
+        w = torch.zeros_like(w)
+    elif case == "z_zero":
+        R, t = T0[:, :3], T0[:, 3]
+        X = X.clone()
+        X[5] = R.mT @ (torch.tensor([0.05, -0.03, 0.0], device=cuda) - t)
+        w = w.clone()
+        w[5] = 0.0
+    elif case in ("z_zero_active", "z_zero_gated"):
+        # the world's origin moved onto the camera's plane z = 0, the problem
+        # otherwise as it was; edge 5's point at that origin
+        R, t = T0[:, :3], T0[:, 3]
+        c = t[2] * R[2]
+        X = (X + c).contiguous()
+        T0 = T0.clone()
+        T0[:, 3] = t - R @ c
+        T0[2, 3] = 0.0
+        X[5] = 0.0
+        w = w.clone()
+        w[5] = 1.0
+        kw = ({"n_rounds": 0} if case == "z_zero_active"
+              else {"n_rounds": 2, "n_iters": 0, "chi2_gate": 1e4})
+    else:
+        g = torch.Generator(device="cpu").manual_seed(3)
+        X = torch.zeros(1000, 3)
+        X[:, 2] = 2.0 + 5.0 * torch.rand(1000, generator=g)
+        uv = (k[2:].cpu() + torch.randn(1000, 2, generator=g)).to(cuda)
+        X, w, T0 = X.to(cuda), torch.ones(1000, device=cuda), se3.identity(device=cuda).contiguous()
+        kw["tau"] = 0.0
+    a, b, agr = _pose_gn_check((T0, X, uv, k, w), **kw)
+    assert bool(torch.isfinite(a.T).all())
+    if case == "z_zero":
+        assert not bool(a.inliers[5]) and agr["chi2_rel"] <= 1e-4
+        return
+    assert torch.equal(a.T, T0) and torch.equal(b.T, T0)
+    torch.testing.assert_close(a.chi2, b.chi2, rtol=1e-5, atol=0)
+    if case.startswith("z_zero"):
+        assert not bool(a.inliers[5]) and not bool(b.inliers[5])
+        assert (float(a.chi2) > 1e9) == (case == "z_zero_active"), float(a.chi2)
+
+
+def test_pose_gn_in_a_captured_program(cuda):
+    """`refine_pose` captured into a CUDA graph and replayed 3 times: the
+    `pose_gn` counter rises by exactly 3 and each replay gives the eager
+    call's result bit for bit (the block sums run in a fixed order)."""
+    import chip_smoke
+    from monocular_slam_tpu_torch.optim import pose_ba
+    from monocular_slam_tpu_torch.utils import graph
+
+    T0, X, uv, k, w = chip_smoke.pose_gn_problem(1, 1000, seed=5, device=cuda)
+    args = (T0[0], X[0], uv[0], k, w[0])
+    eager = pose_ba.refine_pose(*args, n_rounds=3, solver="gn")
+    with torch.inference_mode():
+        prog = graph.Program(lambda: pose_ba.refine_pose(*args, n_rounds=3, solver="gn"),
+                             stream=torch.cuda.Stream(cuda))
+    torch.cuda.synchronize()
+    before = launches.count("pose_gn")
+    for _ in range(3):
+        out = prog.replay()
+        torch.cuda.synchronize()
+        for x, y in zip(out, eager):
+            assert torch.equal(x, y)
+    assert launches.count("pose_gn") == before + 3
+
+
 def test_step_program_equals_eager_on_cuda(cuda):
     """A feature course through the captured step programs and through the
     same functions op by op on the card: equal tracked flags, keyframes
