@@ -6,7 +6,10 @@ layer, each held to the limit in `slambench/limits/<workload>.json`.
   descriptors, as the program stored them, against the reference's
   extraction of the same uint8 frames. A keypoint is matched when the other
   side has one at the same level within `UV_TOL` px with the same 256 bits;
-  the number is the unmatched share of both sides' valid keypoints.
+  the number is the unmatched share of both sides' valid keypoints. Behind
+  a lens the program stores its keypoints undistorted, so the reference's
+  are undistorted first, in float64 until converged
+  (`reference/camera.py`); behind a pinhole they are compared as extracted.
 - `rpe_rot_mrad_p50`, `rpe_mm_p50` (tracking): the median error of each
   consecutive pair of tracked window frames' relative rotation, and of
   their pose step after Sim(3) alignment, as the host read the poses in the
@@ -21,8 +24,9 @@ layer, each held to the limit in `slambench/limits/<workload>.json`.
   end, with the final poses and points.
 
 The control (`control=True`) puts the reference's extraction with its
-pyramid in bfloat16 in the front end's place, and the program's poses and
-points rounded to bfloat16 in the state's place.
+pyramid in bfloat16 (undistorted as the reference's is) in the front end's
+place, and the program's poses and points rounded to bfloat16 in the
+state's place.
 """
 
 from __future__ import annotations
@@ -30,10 +34,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from slambench.reference import geometry
+from slambench.reference import camera, geometry
 from slambench.reference import orb as ref_orb
 
-UV_TOL = 0.01  # px at level 0: the port's zero-coefficient undistortion rounds below 1e-3
+UV_TOL = 0.01  # px at level 0: the port's undistortion rounds below 1e-3 at zero
+# coefficients and lies within 0.0027 px of the converged inverse behind EuRoC's lens
 ROT_TAIL_MRAD = 2.5  # sound runs put 1.5-3.5% of pairs over it, the bfloat16 control 30-39%
 
 
@@ -62,9 +67,11 @@ def _bf16(x: np.ndarray) -> np.ndarray:
     return torch.as_tensor(np.asarray(x, np.float32)).to(torch.bfloat16).float().numpy()
 
 
-def reference_features(img: np.ndarray, fe: dict, device, level_dtype=torch.float32) -> list:
+def reference_features(img: np.ndarray, fe: dict, device, level_dtype=torch.float32,
+                       lens=None) -> list:
     """The reference's extraction of one uint8 frame, in each steering mode
-    that `fe["steer_mode"]` allows ("auto" switches between both)."""
+    that `fe["steer_mode"]` allows ("auto" switches between both), with
+    its valid keypoints undistorted through `lens` ((k, dist)) when given."""
     modes = ("binned", "continuous") if fe["steer_mode"] == "auto" else (fe["steer_mode"],)
     t = torch.as_tensor(img, device=device)
     out = []
@@ -72,19 +79,25 @@ def reference_features(img: np.ndarray, fe: dict, device, level_dtype=torch.floa
         with torch.no_grad():
             f = ref_orb.extract(t, fe["n_features"], fe["n_levels"], fe["fast_threshold"], mode,
                                 level_dtype)
-        out.append({k: v.cpu().numpy() for k, v in f.items()})
+        f = {k: v.cpu().numpy() for k, v in f.items()}
+        if lens is not None:
+            uv = f["uv"].astype(np.float64)
+            uv[f["valid"]] = camera.undistort_pixels(*lens, uv[f["valid"]])
+            f["uv"] = uv
+        out.append(f)
     return out
 
 
 def numbers(ans: dict, gt: np.ndarray, images: dict, fe: dict, device,
-            control: bool = False) -> dict:
+            control: bool = False, lens=None) -> dict:
     """The numbers of a run (`ans` as `run.collect_answers` gives it;
-    `images` the sampled frames' uint8 images by window index)."""
+    `images` the sampled frames' uint8 images by window index; `lens` the
+    configuration's (k, dist) when its lens is not a pinhole)."""
     bad = total = 0
     for j, prog in ans["features"].items():
-        refs = reference_features(images[j], fe, device)
+        refs = reference_features(images[j], fe, device, lens=lens)
         if control:
-            ctl = reference_features(images[j], fe, device, torch.bfloat16)
+            ctl = reference_features(images[j], fe, device, torch.bfloat16, lens)
             counts = [mismatch(c, r) for c, r in zip(ctl, refs)]
         else:
             prog = dict(prog, level=_levels(prog["scale"]))

@@ -4,9 +4,12 @@ A course is the textured box room (`box_room`: four walls, floor, ceiling
 and a square pillar, each face a threefry-noise texture) seen by a camera
 that orbits the pillar at 1.8 m and looks at it. The orbit's angle advances
 by the traffic file's steps, one segment after another; the height bobs as
-`0.15 sin(0.3 i)`. With one segment this is the port's
+`0.15 sin(0.3 i)`. With one segment and no lens this is the port's
 `datasets.render.render_sequence` bit for bit (`slambench/tests`), which is
-the JAX package's course for `PRNGKey(seed)`.
+the JAX package's course for `PRNGKey(seed)`. A configuration's radtan lens
+(`dist`, nonzero) bends each pixel's ray: the pixel's centre, in the
+pinhole path's convention, is taken as a distorted point and its ray is the
+lens's float64 inverse (`reference/camera.py`), cast to float32.
 
 Nothing here imports the port: the benchmark's yardstick must not move when
 a later change edits the program. Frames are rendered in float32 on the
@@ -19,6 +22,8 @@ import math
 
 import numpy as np
 import torch
+
+from slambench.reference import camera
 
 RADIUS = 1.8
 
@@ -135,19 +140,39 @@ def box_room(device):
                  for j in range(4))
 
 
-def render_frame(pose: torch.Tensor, k: torch.Tensor, wh, planes, textures) -> torch.Tensor:
+def lens_rays(k, wh, dist) -> np.ndarray:
+    """(H, W, 2) float32 camera-frame rays (x, y at z = 1) of the pixels'
+    centres seen through the radtan lens `dist` (k1, k2, p1, p2, k3): each
+    centre's normalized coordinates ((x + 0.5 - cx) / fx, as the pinhole
+    path) undistorted in float64 until converged (EuRoC's lens at 752x480:
+    30 steps, the last under 6e-15, 3e-12 px)."""
+    k = np.asarray(k, np.float64)
+    W, H = wh
+    ys, xs = np.meshgrid(np.arange(H, dtype=np.float64), np.arange(W, dtype=np.float64),
+                         indexing="ij")
+    xy_d = np.stack([(xs + 0.5 - k[2]) / k[0], (ys + 0.5 - k[3]) / k[1]], axis=-1)
+    return camera.undistort(dist, xy_d)[0].astype(np.float32)
+
+
+def render_frame(pose: torch.Tensor, k: torch.Tensor, wh, planes, textures,
+                 rays: torch.Tensor | None = None) -> torch.Tensor:
     """Ray-cast one (H, W) float32 frame in [0, 255]; pose is world->camera
-    (3, 4), textures (10, S, S), face j textured by texture j."""
+    (3, 4), textures (10, S, S), face j textured by texture j. Through a
+    pinhole, or with `rays` ((H, W, 2) float32, `lens_rays`) through a
+    lens."""
     origin, pu, pv, extent = planes
     W, H = wh
     S = textures.shape[-1]
     dev = textures.device
     R = pose[:3, :3]
     C = -(R.T @ pose[:3, 3])
-    ys, xs = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
-                            torch.arange(W, device=dev, dtype=torch.float32), indexing="ij")
-    dirs = torch.stack([(xs + 0.5 - k[2]) / k[0], (ys + 0.5 - k[3]) / k[1],
-                        torch.ones_like(xs)], dim=-1) @ R
+    if rays is None:
+        ys, xs = torch.meshgrid(torch.arange(H, device=dev, dtype=torch.float32),
+                                torch.arange(W, device=dev, dtype=torch.float32), indexing="ij")
+        dirs = torch.stack([(xs + 0.5 - k[2]) / k[0], (ys + 0.5 - k[3]) / k[1],
+                            torch.ones_like(xs)], dim=-1) @ R
+    else:
+        dirs = torch.cat([rays, torch.ones_like(rays[..., :1])], dim=-1) @ R
     n = torch.linalg.cross(pu, pv)
     denom = torch.einsum("hwc,pc->phw", dirs, n)
     denom = torch.where(denom.abs() < 1e-9, torch.full_like(denom, 1e-9), denom)
@@ -222,21 +247,25 @@ def orbit_poses(n_frames: int, segments, radius: float = RADIUS) -> np.ndarray:
     return np.concatenate([R, t[..., None]], axis=-1).astype(np.float32)
 
 
-def render(seed: int, n_frames: int, segments, wh, k, device, tex_size: int = 2048):
+def render(seed: int, n_frames: int, segments, wh, k, device, tex_size: int = 2048,
+           dist=None):
     """The course for `seed`: (frames (n, H, W) uint8 numpy, poses_gt (n, 3,
     4) float32 world->camera). Textures from `PRNGKey(seed)` split over the
-    faces; frames rendered on `device` in float32, clamped and truncated to
-    uint8."""
+    faces; frames rendered on `device` in float32 through the radtan lens
+    `dist` (k1, k2, p1, p2, k3; None or all zero: a pinhole), clamped and
+    truncated to uint8."""
     planes = box_room(device)
     keys = split(prng_key(seed), len(_faces()))
     textures = torch.stack([texture(kk, tex_size, device) for kk in keys])
     poses = orbit_poses(n_frames, segments)
     kt = torch.as_tensor(np.asarray(k), dtype=torch.float32, device=device)
     pt = torch.as_tensor(poses, device=device)
+    rays = (None if dist is None or not np.any(np.asarray(dist) != 0)
+            else torch.as_tensor(lens_rays(k, wh, dist), device=device))
     W, H = wh
     out = torch.empty((n_frames, H, W), dtype=torch.uint8, device=device)
     for f in range(n_frames):
-        img = render_frame(pt[f], kt, wh, planes, textures)
+        img = render_frame(pt[f], kt, wh, planes, textures, rays)
         out[f] = torch.clamp(img, 0.0, 255.0).to(torch.uint8)
     frames = out.cpu().numpy()
     return frames, poses

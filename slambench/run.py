@@ -16,13 +16,17 @@ Set-up (`setup_s`, from process start to the first due frame): the port's
 kernels built into `slambench/_build/` (only a checkout's first run
 compiles), the course rendered on the card by the frozen generator (its
 textures from the traffic file's `scene_seed`, so every seed of a cell
-sees one room) and copied to the host as uint8 frames, the frozen vocabulary loaded, the session (seeded by
-`--seed`) and its loop closer built and prewarmed, and the warm-up frames
-fed as fast as the session takes them. In the window frame j is due at
+sees one room; through the configuration's `camera` lens, k1, k2, p1, p2,
+k3, when any is nonzero) and copied to the host as uint8 frames, the
+frozen vocabulary loaded, the session (seeded by `--seed`) and its loop
+closer built and prewarmed, and the warm-up frames fed as fast as the
+session takes them. In the window frame j is due at
 t0 + j / rate: the harness sleeps until `SPIN_S` before then and spins to
 it (or feeds it at once when the session is behind), calls
-`add_frame(frame, k)` and reads the frame's pose to the host; the frame's
-latency runs from its due time to the end of that read. With `--trace 1` the same window is run with CUDA
+`add_frame(frame, k)` (behind a lens `add_frame(frame, k, dist=...)`, its
+five coefficients in float32, here and in the warm-up) and reads the
+frame's pose to the host; the frame's latency runs from its due time to
+the end of that read. With `--trace 1` the same window is run with CUDA
 events around every frame and `torch.profiler` over the traffic file's
 traced frames, and the per-layer metrics are reported instead.
 
@@ -57,6 +61,7 @@ if str(ROOT) not in sys.path:
 
 from slambench import check, course, work  # noqa: E402
 from slambench import trace as trace_mod  # noqa: E402
+from slambench.reference import camera  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "monocular_slam_tpu")
 SPIN_S = 0.002  # the generator sleeps until this long before a frame is due, then spins
@@ -190,10 +195,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
     t = time.perf_counter()
     cam = conf["camera"]
     k = np.array([cam["fx"], cam["fy"], cam["cx"], cam["cy"]], np.float32)
+    dist = camera.coefficients(cam)
+    lens_kw = {} if dist is None else {"dist": dist.astype(np.float32)}
     wh = tuple(conf["slam"]["image_wh"])
     frames, gt = course.render(int(traffic["scene_seed"]), n_warm + n_win,
                                traffic["segments"], wh, k, dev,
-                               int(traffic.get("texture_size", 2048)))
+                               int(traffic.get("texture_size", 2048)), dist)
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -212,7 +219,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
 
     t = time.perf_counter()
     for f in range(n_warm):
-        st = sess.add_frame(frames[f], k, timestamp=f / rate)
+        st = sess.add_frame(frames[f], k, timestamp=f / rate, **lens_kw)
         sess.state.poses[st.frame].cpu()
     if cuda:
         torch.cuda.synchronize()
@@ -251,7 +258,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
         with span():
             if ev:
                 ev[0].record()
-            st = sess.add_frame(frames[n_warm + j], k, timestamp=j / rate)
+            st = sess.add_frame(frames[n_warm + j], k, timestamp=j / rate, **lens_kw)
             if ev:
                 ev[1].record()
             poses[j] = sess.state.poses[st.frame].cpu().numpy()
@@ -305,11 +312,13 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
     if cuda:
         torch.cuda.empty_cache()
     images = {j: frames[n_warm + j] for j in ans["features"]}
-    values = check.numbers(ans, gt[n_warm:], images, fe, dev)
+    ref_lens = None if dist is None else (k, dist)
+    values = check.numbers(ans, gt[n_warm:], images, fe, dev, lens=ref_lens)
     ok, checks = check.judge(values, spec["limits"])
     out = {"correct": bool(ok), "attempted": n_win, "failed": int(n_win - tracked.sum())}
     if control:
-        out["control"] = check.numbers(ans, gt[n_warm:], images, fe, dev, control=True)
+        out["control"] = check.numbers(ans, gt[n_warm:], images, fe, dev, control=True,
+                                       lens=ref_lens)
         out["readings"] = values
 
     log("set-up split (s):", json.dumps({k: round(v, 3) for k, v in split.items()}))

@@ -1,6 +1,9 @@
 """The benchmark's frozen copies against the program's originals, on the
-CPU: the course generator bit for bit, the kernels' work formulas and the
-card's peaks."""
+CPU: the course generator bit for bit, the lens model, the kernels' work
+formulas and the card's peaks."""
+
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -8,9 +11,14 @@ import torch
 
 from monocular_slam_tpu_torch import bench as port_bench
 from monocular_slam_tpu_torch.datasets import render, synthetic
+from monocular_slam_tpu_torch.geometry import camera as port_camera
 from monocular_slam_tpu_torch.ops import pyramid
 from monocular_slam_tpu_torch.utils import prng, roofline
 from slambench import course, work
+from slambench.reference import camera
+
+REPO = Path(__file__).resolve().parents[2]
+EUROC = json.loads((REPO / "slambench/configs/euroc_mav.json").read_text())["camera"]
 
 
 @pytest.mark.parametrize("seed", [11, 19, 2**31 + 12345])
@@ -40,6 +48,67 @@ def test_segmented_orbit():
     np.testing.assert_allclose(np.diff(ang), [0.0136] * 40 + [0.0035] * 59, rtol=1e-9)
     c = -np.einsum("nji,nj->ni", poses[..., :3].astype(np.float64), poses[..., 3])
     np.testing.assert_allclose(np.hypot(c[:, 0], c[:, 2]), 1.8, rtol=1e-6)
+
+
+@pytest.mark.parametrize("cell", ["tum1_vga.desk30", "kitti_wide.orbit10"])
+def test_pinhole_cells_render_as_before(cell):
+    """A zero lens leaves the course the pinhole's: each existing cell's
+    first frames, with `dist` None and all zero, are the port's pinhole
+    render of the same room, camera and step (textures at a CPU size)."""
+    spec = json.loads((REPO / "BENCHMARK.json").read_text())
+    w = next(w for w in spec["workloads"] if w["name"] == cell)
+    conf = json.loads((REPO / f"slambench/configs/{w['config']}.json").read_text())
+    traffic = json.loads((REPO / f"slambench/traffic/{w['traffic']}.json").read_text())
+    cam, wh, n = conf["camera"], tuple(conf["slam"]["image_wh"]), 2
+    assert camera.coefficients(cam) is None
+    k = np.array([cam["fx"], cam["fy"], cam["cx"], cam["cy"]], np.float32)
+    ref, ref_gt, _ = render.render_sequence(seed=traffic["scene_seed"], n_frames=n, wh=wh,
+                                            ang_step=traffic["segments"][0][1], tex_size=64,
+                                            device="cpu", k=k)
+    for dist in (None, np.zeros(5)):
+        frames, gt = course.render(traffic["scene_seed"], n, traffic["segments"], wh, k, "cpu",
+                                   tex_size=64, dist=dist)
+        np.testing.assert_array_equal(gt, ref_gt)
+        np.testing.assert_array_equal(frames, ref.numpy().astype(np.uint8))
+
+
+def test_reference_lens_is_the_ports():
+    """The frozen radtan model is the port's `distort_radtan` and, at the
+    port's 10 steps, its `undistort_radtan`, to float32 rounding."""
+    dist = camera.coefficients(EUROC)
+    xy = np.random.default_rng(3).uniform(-0.8, 0.8, (500, 2)) * [1.0, 0.6]
+    port_d = port_camera.distort_radtan(torch.tensor(dist, dtype=torch.float32),
+                                        torch.tensor(xy, dtype=torch.float32)).numpy()
+    np.testing.assert_allclose(camera.distort(dist, xy), port_d, rtol=0, atol=2e-6)
+    xy_d = camera.distort(dist, xy)
+    port_u = port_camera.undistort_radtan(torch.tensor(dist, dtype=torch.float32),
+                                          torch.tensor(xy_d, dtype=torch.float32)).numpy()
+    ours, n, _ = camera.undistort(dist, xy_d, iters=10)
+    assert n == 10
+    np.testing.assert_allclose(ours, port_u, rtol=0, atol=2e-6)
+    conv, n, step = camera.undistort(dist, xy_d)
+    assert step < camera.TOL and n < camera.MAX_ITER
+    np.testing.assert_allclose(conv, xy, rtol=0, atol=1e-12)
+
+
+def test_lens_round_trip():
+    """A world point on a rendered pixel's ray: its true pinhole pixel,
+    distorted by the frozen model, lands on that pixel's centre within
+    1e-3 px, over every pixel of EuRoC's frame."""
+    dist = camera.coefficients(EUROC)
+    k = np.array([EUROC[c] for c in ("fx", "fy", "cx", "cy")], np.float32)
+    rays = course.lens_rays(k, (752, 480), dist)
+    assert rays.shape == (480, 752, 2) and rays.dtype == np.float32
+    depth = np.random.default_rng(5).uniform(0.5, 4.0, rays.shape[:2])
+    X = np.concatenate([rays * depth[..., None], depth[..., None]], axis=-1)
+    k64 = k.astype(np.float64)
+    pinhole = X[..., :2] / X[..., 2:]
+    uv = camera.distort(dist, pinhole) * k64[:2] + k64[2:]
+    ys, xs = np.meshgrid(np.arange(480), np.arange(752), indexing="ij")
+    centre = np.stack([xs + 0.5, ys + 0.5], axis=-1)
+    assert np.abs(uv - centre).max() < 1e-3
+    # the lens bends: the corner rays lie well outside the pinhole's
+    assert np.abs(rays[0, 0, 0]) > 1.2 * np.abs((0.5 - k64[2]) / k64[0])
 
 
 @pytest.mark.parametrize("hw", [(480, 640), (376, 1241), (1000, 1000)])

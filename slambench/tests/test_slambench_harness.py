@@ -2,7 +2,9 @@
 configuration, a traffic mix, a limits file and a per-layer reader, in a
 scratch copy of the benchmark) runs through `run_cell` with the session's
 plain paths; the result line has the contract's keys; no JAX module is
-loaded; and `correct` comes out false when the timed path is broken."""
+loaded; a configuration's lens reaches every `add_frame` call, and a
+pinhole's none; and `correct` comes out false when the timed path is
+broken."""
 
 import json
 import re
@@ -23,6 +25,7 @@ REPO = Path(__file__).resolve().parents[2]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 CELL = "tiny_vga.tiny10"
+LENS_CELL = "tiny_mav.tiny10"  # EuRoC's camera at half its size, lens as published
 WARMUP = 15
 LIMITS = {"kp_mismatch_pct": 1.0, "rpe_rot_mrad_p50": 3.0, "rot_over_2.5mrad_pct": 60.0}
 READER = '''
@@ -43,8 +46,13 @@ def root(tmp_path_factory):
     spec["configs"].append({"name": "tiny_vga", "source": "https://example.org/tiny",
                             "file": "slambench/configs/tiny_vga.json", "reduced": [],
                             "why": "the CPU test's size"})
+    spec["configs"].append({"name": "tiny_mav", "source": "https://example.org/tiny",
+                            "file": "slambench/configs/tiny_mav.json", "reduced": [],
+                            "why": "the CPU test's size, with a lens"})
     spec["workloads"].append({"name": CELL, "config": "tiny_vga", "traffic": "tiny10",
                               "chips": 1, "why": "the CPU test's cell"})
+    spec["workloads"].append({"name": LENS_CELL, "config": "tiny_mav", "traffic": "tiny10",
+                              "chips": 1, "why": "the CPU test's cell behind a lens"})
     spec["per_layer"].append({"name": "frames_seen", "unit": "frames", "better": "higher",
                               "source": "program_counter", "layer": "tracking",
                               "moves": "frame_ms_mean", "workloads": [CELL]})
@@ -54,17 +62,23 @@ def root(tmp_path_factory):
     conf["slam"]["frontend"]["n_features"] = 500
     conf["camera"].update(fx=258.653, fy=258.235, cx=159.32, cy=127.66)
     (dst / "slambench/configs/tiny_vga.json").write_text(json.dumps(conf))
+    conf = json.loads((REPO / "slambench/configs/euroc_mav.json").read_text())
+    conf["slam"].update(image_wh=[376, 240], max_points=4000, max_slots=None)
+    conf["slam"]["frontend"]["n_features"] = 500
+    conf["camera"].update(fx=229.327, fy=228.648, cx=183.6075, cy=124.1875)
+    (dst / "slambench/configs/tiny_mav.json").write_text(json.dumps(conf))
     (dst / "slambench/traffic/tiny10.json").write_text(json.dumps({
         "rate_hz": 10.0, "warmup_frames": WARMUP, "segments": [[0, 0.01]], "scene_seed": 7,
         "trace_frames": 3, "check_frames": 2, "texture_size": 256}))
-    (dst / f"slambench/limits/{CELL}.json").write_text(json.dumps(LIMITS))
+    for cell in (CELL, LENS_CELL):
+        (dst / f"slambench/limits/{cell}.json").write_text(json.dumps(LIMITS))
     (dst / "slambench/layer_metrics/frames_seen.py").write_text(READER)
     return dst
 
 
-def _run(root, trace=False, seed=7):
+def _run(root, trace=False, seed=7, cell=CELL):
     torch.set_num_threads(2)
-    return run.run_cell(CELL, seed, 1.0, trace, device="cpu", root=root)
+    return run.run_cell(cell, seed, 1.0, trace, device="cpu", root=root)
 
 
 def test_benchmark_names_and_units():
@@ -96,6 +110,34 @@ def test_a_cell_added_as_data_runs(root):
     assert set(res["metrics"]) == {"frame_ms_mean", "frame_ms_p95", "setup_s"}
     assert set(res["checks"]) == set(LIMITS)
     assert run.forbidden_modules() == []
+
+
+@pytest.mark.parametrize("cell", [CELL, LENS_CELL])
+def test_the_lens_reaches_every_add_frame(root, monkeypatch, cell):
+    """A pinhole's frames are fed with no `dist`; a lens's with its five
+    published coefficients in float32 on every call, warm-up and window,
+    and its keypoints then match the reference's undistorted ones."""
+    from monocular_slam_tpu_torch.slam import session
+
+    seen, orig = [], session.SlamSession.add_frame
+
+    def add_frame(self, img, k, *a, **kw):
+        seen.append(kw.get("dist", "none"))
+        return orig(self, img, k, *a, **kw)
+
+    monkeypatch.setattr(session.SlamSession, "add_frame", add_frame)
+    res = _run(root, cell=cell)
+    assert len(seen) == WARMUP + 10
+    if cell == CELL:
+        assert all(d == "none" for d in seen)
+    else:
+        conf = json.loads((root / "slambench/configs/tiny_mav.json").read_text())["camera"]
+        want = np.array([conf[c] for c in ("k1", "k2", "p1", "p2", "k3")], np.float32)
+        for d in seen:
+            assert d.dtype == np.float32
+            np.testing.assert_array_equal(d, want)
+    assert res["correct"] is True, res["checks"]
+    assert res["checks"]["kp_mismatch_pct"]["value"] < 0.5, res["checks"]
 
 
 def test_forbidden_modules_compares_whole_top_level_names():
@@ -160,13 +202,25 @@ def _keyframe_pose_altered(orig):
     return step
 
 
+def _lens_withheld(orig):
+    def add_frame(self, img, k, timestamp=0.0, dist=None):
+        return orig(self, img, k, timestamp)
+    return add_frame
+
+
 @pytest.mark.parametrize("fault", ["unchanged_state", "half_the_keypoints", "pose_altered",
-                                   "keyframe_pose_altered"])
+                                   "keyframe_pose_altered", "lens_withheld"])
 def test_a_broken_timed_path_is_not_correct(root, monkeypatch, fault):
     from monocular_slam_tpu_torch.ops import features
     from monocular_slam_tpu_torch.slam import session
 
-    if fault == "unchanged_state":
+    cell = CELL
+    if fault == "lens_withheld":
+        # the session is fed the lens's frames as if through a pinhole
+        monkeypatch.setattr(session.SlamSession, "add_frame",
+                            _lens_withheld(session.SlamSession.add_frame))
+        cell = LENS_CELL
+    elif fault == "unchanged_state":
         monkeypatch.setattr(session, "session_step", _unchanged(session.session_step))
     elif fault == "half_the_keypoints":
         monkeypatch.setattr(features, "extract", _half_left_out(features.extract))
@@ -174,7 +228,7 @@ def test_a_broken_timed_path_is_not_correct(root, monkeypatch, fault):
         monkeypatch.setattr(session, "session_step", _pose_altered(session.session_step))
     else:
         monkeypatch.setattr(session, "session_step", _keyframe_pose_altered(session.session_step))
-    res = _run(root)
+    res = _run(root, cell=cell)
     assert res["correct"] is False, res["checks"]
     assert np.isfinite(res["metrics"]["frame_ms_mean"]["value"])
     if fault == "keyframe_pose_altered":
@@ -189,6 +243,15 @@ def test_the_control_is_judged_not_correct(root):
     assert line["correct"] is True, line["program"]
     assert line["control_correct"] is False, line["control_checks"]
     assert set(line["control_checks"]) == set(LIMITS)
+    assert line["control_checks"]["kp_mismatch_pct"]["value"] > LIMITS["kp_mismatch_pct"]
+
+
+def test_the_control_behind_a_lens_is_judged_not_correct(root):
+    """The control's extraction is undistorted as the reference's is, and
+    still fails where the program passes."""
+    line = control.reading(LENS_CELL, 7, 1.0, root=root, device="cpu")
+    assert line["correct"] is True, line["program"]
+    assert line["control_correct"] is False, line["control_checks"]
     assert line["control_checks"]["kp_mismatch_pct"]["value"] > LIMITS["kp_mismatch_pct"]
 
 
