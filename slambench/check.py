@@ -27,6 +27,17 @@ The control (`control=True`) puts the reference's extraction with its
 pyramid in bfloat16 (undistorted as the reference's is) in the front end's
 place, and the program's poses and points rounded to bfloat16 in the
 state's place.
+
+A configuration may name checks of its own (`"checks": ["reloc"]` in its
+file): each is a module `slambench/checks/<name>.py`, found by name as the
+per-layer readers are (`slambench/checks/__init__.py` gives its
+interface). `numbers` returns the numbers above updated with each named
+module's, for the program and, with `control`, for the control's inputs
+(the answers with their poses, points and observation poses rounded to
+bfloat16, as above), so a limits file may name any of them. A
+configuration that names none gets the numbers above alone. A later cell
+adds a check as new files only: the module, its plain reference under
+`slambench/reference/`, and a limits file that names its numbers.
 """
 
 from __future__ import annotations
@@ -63,7 +74,8 @@ def mismatch(prog: dict, ref: dict) -> tuple[int, int]:
     return bad, total
 
 
-def _bf16(x: np.ndarray) -> np.ndarray:
+def bf16(x: np.ndarray) -> np.ndarray:
+    """`x` rounded to bfloat16, as float32 numpy: the control's rounding."""
     return torch.as_tensor(np.asarray(x, np.float32)).to(torch.bfloat16).float().numpy()
 
 
@@ -89,10 +101,13 @@ def reference_features(img: np.ndarray, fe: dict, device, level_dtype=torch.floa
 
 
 def numbers(ans: dict, gt: np.ndarray, images: dict, fe: dict, device,
-            control: bool = False, lens=None) -> dict:
+            control: bool = False, lens=None, checks=None, collected=None,
+            traffic=None) -> dict:
     """The numbers of a run (`ans` as `run.collect_answers` gives it;
     `images` the sampled frames' uint8 images by window index; `lens` the
-    configuration's (k, dist) when its lens is not a pinhole)."""
+    configuration's (k, dist) when its lens is not a pinhole), and those of
+    the configuration's own `checks` ({name: module}), each given its
+    `collected[name]` and the cell's `traffic`."""
     bad = total = 0
     for j, prog in ans["features"].items():
         refs = reference_features(images[j], fe, device, lens=lens)
@@ -107,12 +122,12 @@ def numbers(ans: dict, gt: np.ndarray, images: dict, fe: dict, device,
     poses, obs = ans["poses"], ans["obs"]
     points, obs_pose = ans["points"], obs["pose"]
     if control:
-        poses, points, obs_pose = _bf16(poses), _bf16(points), _bf16(obs_pose)
+        poses, points, obs_pose = bf16(poses), bf16(points), bf16(obs_pose)
     rpe = geometry.rpe_mm(poses, gt, ans["tracked"])
     rot = geometry.rpe_rot_mrad(poses, gt, ans["tracked"])
     rep = (geometry.reprojection_px(obs_pose, obs["k"], obs["uv"], obs["scale"], obs["pid"],
                                     points) if len(obs["pid"]) else [])
-    return {
+    out = {
         "kp_mismatch_pct": 100.0 * bad / total if total else float("inf"),
         "rpe_mm_p50": float(np.median(rpe)),
         "rpe_rot_mrad_p50": float(np.median(rot)),
@@ -120,6 +135,17 @@ def numbers(ans: dict, gt: np.ndarray, images: dict, fe: dict, device,
         "reproj_px_mean": float(np.mean(rep)) if len(rep) else float("inf"),
         "reproj_px_p50": float(np.median(rep)) if len(rep) else float("inf"),
     }
+    given = dict(ans, poses=poses, points=points, obs=dict(obs, pose=obs_pose))
+    for name, mod in (checks or {}).items():
+        out.update(mod.numbers(given, gt, (collected or {}).get(name), traffic, control))
+    return out
+
+
+def recoveries(tracked) -> np.ndarray:
+    """Window indices of the tracked frames whose previous window frame was
+    not tracked: where the session got a pose back after losing it."""
+    t = np.asarray(tracked, bool)
+    return np.flatnonzero(t[1:] & ~t[:-1]) + 1
 
 
 def judge(values: dict, limits: dict) -> tuple[bool, dict]:

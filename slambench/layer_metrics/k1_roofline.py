@@ -2,12 +2,12 @@
 every pyramid level of the frame, at the card's HBM rate) over the
 profiler's device time of its launches in the traced frames, in %."""
 
-from slambench.layer_metrics._frames import frontend, traced
+from slambench.layer_metrics._frames import frontend, launch_windows
 from slambench.trace import ops_in
 
 
 def read(run):
-    frames = traced(run)
+    frames = launch_windows(run)
     if not frames:
         return None
     fe = frontend(run)

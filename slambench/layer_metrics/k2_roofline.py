@@ -5,7 +5,7 @@ at the card's int8 rate, over the profiler's device time of those
 launches, in %. Only traced frames whose K2 launches are the step's own
 (no closure or relocalization in the frame) count."""
 
-from slambench.layer_metrics._frames import frontend, traced
+from slambench.layer_metrics._frames import frontend, launch_windows
 from slambench.trace import ops_in
 
 
@@ -13,7 +13,7 @@ def read(run):
     fe = frontend(run)
     per_launch = run.work.k2_ops(fe["n_features"], fe["back_traverse"], fe["n_features"])
     t_ns, ops = 0, 0
-    for rec, (lo, hi) in traced(run):
+    for rec, (lo, hi) in launch_windows(run):
         d = ops_in(run.trace, lo, hi, "hamming_top2")
         if rec["other_work"] or not len(d) or rec["k2"] != len(d):
             continue

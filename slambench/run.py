@@ -35,6 +35,17 @@ reference (`slambench/check.py`); the numbers and their limits are the last
 lines on standard error and the `checks` key of the result, the last line
 of standard output. The run fails without printing a result when no card
 is there, and when `jax`, `jaxlib`, `flax` or the JAX package is loaded.
+
+A configuration file may name checks of its own (`"checks": [...]`): the
+modules `slambench/checks/<name>.py`, found by name. Once the session has
+drained its pending outcomes, and before it is freed, each module's
+optional `collect(sess, lc, first, n)` takes host copies of what its check
+needs from the session and the loop closer; its `numbers` then join
+`check.numbers`'s, for the program and the control, and the cell's limits
+file may name them. So a later cell brings its own `correct` numbers as new
+files only. The `outcome` line on standard error gives, besides, the
+window's runs of untracked frames, its recoveries (tracked frames after an
+untracked one) and the session's relocalization attempts and successes.
 """
 
 from __future__ import annotations
@@ -102,13 +113,21 @@ def load_cell(root: Path, workload: str) -> dict:
     }
 
 
-def reader(bench: Path, name: str):
-    """The `read(run)` function of `bench/layer_metrics/<name>.py`."""
-    path = bench / "layer_metrics" / f"{name}.py"
-    mod_spec = importlib.util.spec_from_file_location(f"slambench_metric_{name}", path)
+def _module(path: Path, name: str):
+    mod_spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(bench: Path, name: str):
+    """The `read(run)` function of `bench/layer_metrics/<name>.py`."""
+    return _module(bench / "layer_metrics" / f"{name}.py", f"slambench_metric_{name}").read
+
+
+def check_modules(bench: Path, names) -> dict:
+    """{name: module} of a configuration's own checks, `bench/checks/<name>.py`."""
+    return {n: _module(bench / "checks" / f"{n}.py", f"slambench_check_{n}") for n in names}
 
 
 def slam_config(conf: dict, max_frames: int):
@@ -162,6 +181,12 @@ def collect_answers(state, first: int, n: int, poses, tracked, rng, n_check: int
             "points": host["points"], "n_resident": len(res_idx)}
 
 
+def lost_runs(tracked) -> list[int]:
+    """Lengths of the runs of untracked frames, in order."""
+    edges = np.diff(np.concatenate([[0], ~np.asarray(tracked, bool), [0]]).astype(np.int8))
+    return (np.flatnonzero(edges == -1) - np.flatnonzero(edges == 1)).tolist()
+
+
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str = "cuda",
              root: Path = ROOT, control: bool = False, t_start: float | None = None) -> dict:
     """One run of `workload`: its result line's object, and with `control`
@@ -174,6 +199,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
     rate = float(traffic["rate_hz"])
     n_warm = int(traffic["warmup_frames"])
     n_win = int(round(rate * seconds))
+    own_checks = check_modules(spec["bench"], conf.get("checks", ()))
     split = {}
 
     from monocular_slam_tpu_torch.ops import fast_score, hamming, small_eigh
@@ -225,6 +251,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
         torch.cuda.synchronize()
     split["warmup_s"] = time.perf_counter() - t
     calls0 = len(sess.program_calls)
+    relocs0 = (sess.reloc_attempts, sess.reloc_successes)
     closures0 = len(lc.closures)
     captured0 = set(sess.capture_s)
 
@@ -275,8 +302,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
     if prof is not None:
         prof.stop()
     backlog_s = float(lat[-1])
+    calls1 = len(sess.program_calls)
+    reloc = (sess.reloc_attempts - relocs0[0], sess.reloc_successes - relocs0[1])
     sess.flush()
     mem_peak = int(torch.cuda.max_memory_allocated()) if cuda else 0
+    collected = {n: m.collect(sess, lc, n_warm, n_win) for n, m in own_checks.items()
+                 if hasattr(m, "collect")}
     tracked = np.array([bool(s.tracked) for s in stats])
     for r, s in zip(records, stats):
         launches = s.launches or {}
@@ -284,7 +315,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
         r.update(is_keyframe=bool(s.is_keyframe), tracked=bool(s.tracked),
                  k1=launches.get("corner_maps"), k2=launches.get("hamming_top2"),
                  span_ms=ev[0].elapsed_time(ev[1]) if ev else None)
-    calls = sess.program_calls[calls0:]
+    calls = sess.program_calls[calls0:calls1]
     closures = list(lc.closures[closures0:])
 
     tr = trace_mod.reduce(prof.profiler.kineto_results.events()) if prof is not None else None
@@ -303,6 +334,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
         "capture_frames": [r["j"] for r in records if r["captures"]],
         "keyframes": len(sess.keyframes), "tracked": int(tracked.sum()),
         "closures": [list(c) for c in closures],
+        "lost_runs": lost_runs(tracked), "recoveries": check.recoveries(tracked).tolist(),
+        "reloc_attempts": reloc[0], "reloc_successes": reloc[1],
         "corrected": [list(c) for c in lc.corrected if c in closures],
         "ate_cm": check.geometry.ate_cm(poses, gt[n_warm:], tracked),
         "n_resident": ans["n_resident"], "capture_s_total": float(sum(sess.capture_s.values())),
@@ -313,12 +346,13 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device: str 
         torch.cuda.empty_cache()
     images = {j: frames[n_warm + j] for j in ans["features"]}
     ref_lens = None if dist is None else (k, dist)
-    values = check.numbers(ans, gt[n_warm:], images, fe, dev, lens=ref_lens)
+    own = {"checks": own_checks, "collected": collected, "traffic": traffic}
+    values = check.numbers(ans, gt[n_warm:], images, fe, dev, lens=ref_lens, **own)
     ok, checks = check.judge(values, spec["limits"])
     out = {"correct": bool(ok), "attempted": n_win, "failed": int(n_win - tracked.sum())}
     if control:
         out["control"] = check.numbers(ans, gt[n_warm:], images, fe, dev, control=True,
-                                       lens=ref_lens)
+                                       lens=ref_lens, **own)
         out["readings"] = values
 
     log("set-up split (s):", json.dumps({k: round(v, 3) for k, v in split.items()}))
